@@ -1,6 +1,7 @@
 """GPU-only checks of the port's CUDA kernels beyond the main path's shapes
 (head_dim 128, single-tile and odd-tile sequences, token counts that are not
-a tile multiple, the widest and narrowest C), the wrappers' input checks,
+a tile multiple, the widest and narrowest C; the splat composite with both
+payloads and an overflowing pair capacity), the wrappers' input checks,
 and the module dispatch. Each test needs a CUDA device and skips without
 one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
@@ -108,6 +109,65 @@ def test_geglu_ffn_rejects_what_it_cannot_take(cuda):
         geglu_ffn(x.t().contiguous().t(), w1, b1, w2, b2)  # not contiguous
 
 
+def _splat_bins(dev, packed, max_pairs, n=4096, views=4, size=64):
+    """A seeded scene binned for ``views`` orbit cameras at ``size``²."""
+    import numpy as np
+
+    from videomv_tpu_torch.data.cameras import (
+        GSCameraSettings, orbit_c2w_opengl, prepare_gs_training)
+    from videomv_tpu_torch.ops import gaussian_splat as tgs
+    from videomv_tpu_torch.ops import splat
+
+    rs = np.random.default_rng(n + views)
+    quat = rs.normal(size=(n, 4))
+    g = np.concatenate([rs.uniform(-0.5, 0.5, (n, 3)), rs.uniform(0.05, 1.0, (n, 1)),
+                        rs.uniform(0.005, 0.03, (n, 3)),
+                        quat / np.linalg.norm(quat, axis=1, keepdims=True),
+                        rs.uniform(0, 1, (n, 3))], axis=1).astype(np.float32)
+    st = GSCameraSettings(input_size=size, output_size=size)
+    cams = prepare_gs_training(orbit_c2w_opengl(views, 15.0, 2.0), st, ray_size=8)
+    prep = {k: v[None] for k, v in tgs.prepare_gaussians(torch.from_numpy(g).to(dev)).items()}
+    proj = tgs.project_prepared(prep, torch.from_numpy(cams["cam_view"][0]).to(dev),
+                                torch.from_numpy(cams["cam_view_proj"][0]).to(dev), size,
+                                st.tan_half_fov)
+    return splat.bin_pairs(*proj, img_size=size, max_pairs=max_pairs, packed=packed)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("max_pairs", [1 << 15, 2048])  # 2048 overflows
+def test_splat_composite_matches_its_twin(cuda, packed, max_pairs):
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, pairs = _splat_bins(cuda, packed, max_pairs)
+    assert (pairs > max_pairs).all() == (max_pairs == 2048), pairs
+    ops.reset_launch_counts()
+    kern = splat.composite(payload, ts, tc, 4)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["splat_composite"] == 1
+    twin = splat.composite_reference(payload, ts, tc, 4)
+    assert twin[:, :, 3].max() > 0.5  # the views are covered
+    # fp32 both; a running product against exp of a cumulative log sum
+    assert (kern - twin).abs().max().item() <= 2e-4
+
+
+def test_splat_composite_rejects_what_it_cannot_take(cuda):
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, _ = _splat_bins(cuda, True, 1 << 15, views=2)
+    with pytest.raises(ValueError):
+        splat.composite(payload.double(), ts, tc, 4)  # not fp32
+    with pytest.raises(ValueError):
+        splat.composite(payload[:, :6].contiguous(), ts, tc, 4)  # 6 rows
+    with pytest.raises(ValueError):
+        splat.composite(payload, ts.long(), tc, 4)  # int64 starts
+    with pytest.raises(ValueError):
+        splat.composite(payload, ts, tc, 8)  # tile grid disagrees
+    with pytest.raises(ValueError):
+        splat.composite(payload, ts.cpu(), tc, 4)  # another device
+    with pytest.raises(NotImplementedError):
+        splat.composite(payload.requires_grad_(), ts, tc, 4)  # forward only
+
+
 def test_module_dispatch_reaches_the_kernels(cuda):
     from videomv_tpu_torch.models.blocks import BasicTransformerBlock
 
@@ -120,8 +180,8 @@ def test_module_dispatch_reaches_the_kernels(cuda):
         block(x, ctx)
     # attn1 (self, 1024 tokens) and the FFN (8192 tokens) take the kernels;
     # attn2 (77 context tokens) stays plain
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 1}
+    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 1, "splat_composite": 0}
     ops.reset_launch_counts()
     with torch.no_grad():
         block.train()(x, ctx)  # training mode: the FFN gate is closed
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0}
+    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0}

@@ -53,7 +53,7 @@ def test_attention_wrapper_on_cpu_runs_the_twin():
                                   attention_reference(q, k, v).numpy())
     np.testing.assert_array_equal(dot_product_attention(q, k, v).numpy(),
                                   attention_reference(q, k, v).numpy())
-    assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0}
 
 
 def test_attention_mask_and_bias_match_jax():

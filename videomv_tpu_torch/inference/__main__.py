@@ -6,13 +6,11 @@
 Takes the arguments of the JAX package's ``inference.py`` (plus
 ``--device``, default ``cuda`` when available), reads the same YAML files
 (merging the linked train YAML via ``vldm_cfg``), reads prompts from
-``test_list_path`` and writes one output per prompt under ``log_dir``
-(mp4, PNG frames or ``.npy``, whichever writer the machine has).
-
-The Gaussian-splat refine is not ported yet: a config with
-``UNet.use_lgm_refine: True`` (as ``configs/t2v_infer.yaml`` ships) stops
-with ``NotImplementedError`` before sampling; pass
-``UNet.use_lgm_refine False`` to sample without it.
+``test_list_path`` and writes under ``log_dir``, for every prompt, the
+plain sample; with ``UNet.use_lgm_refine`` (as ``configs/t2v_infer.yaml``
+ships) also the Gaussian-splat refined sample (``_gs``), and with
+``save_ply`` its Gaussians as a ``.ply``. Videos are mp4, PNG frames or
+``.npy``, whichever writer the machine has.
 """
 
 from __future__ import annotations
@@ -57,10 +55,6 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
         raise NotImplementedError("I2V is not ported yet (a later slice of the port)")
     if task != "inference_text2video_entrance":
         raise SystemExit(f"unknown TASK_TYPE {task}")
-    if bool(cfg.get("UNet", {}).get("use_lgm_refine", False)):
-        raise NotImplementedError(
-            "UNet.use_lgm_refine is set, but the Gaussian-splat refine is not ported "
-            "yet; pass the override `UNet.use_lgm_refine False` to sample without it")
 
     device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
     logging.info("torch %s device %s", torch.__version__, device)
@@ -79,6 +73,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
 
     log_dir = cfg.get("log_dir", "workspace/visualization")
     os.makedirs(log_dir, exist_ok=True)
+    use_refine = bool(cfg.get("UNet", {}).get("use_lgm_refine", False))
     rounds = 1 if args.debug else int(cfg.get("round", 1))
     steps = int(cfg.get("ddim_timesteps", 50))
     written = []
@@ -87,12 +82,21 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
             seed = int(cfg.get("seed", 0)) + r
             logging.info("[%d/%d] sampling %r (seed %d)", idx, len(items), item, seed)
             cap_name = re.sub(r"[^\w\s]", "", item).replace(" ", "_")[:60]
+            stem = os.path.join(log_dir, f"{idx:04d}_{cap_name}_{seed}")
             t0 = time.time()
             out = pipe.generate(item, steps=steps, seed=seed)
-            path = os.path.join(log_dir, f"{idx:04d}_{cap_name}_{seed}.mp4")
-            path = save_multiview_video(path, out["frames"], caption=item)
-            written.append(path)
-            logging.info("saved %s (%.1fs)", path, time.time() - t0)
+            written.append(save_multiview_video(stem + ".mp4", out["frames"], caption=item))
+            logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
+            if use_refine:
+                t0 = time.time()
+                out_gs = pipe.generate(item, steps=steps, use_gs_refine=True, seed=seed)
+                written.append(save_multiview_video(stem + "_gs.mp4", out_gs["frames"],
+                                                    caption=item))
+                logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
+                if bool(cfg.get("save_ply", False)):
+                    pipe.export_ply(out_gs["frames"], stem + ".ply")
+                    written.append(stem + ".ply")
+                    logging.info("saved %s", written[-1])
     logging.info("inference complete")
     return written
 

@@ -1,0 +1,105 @@
+"""The 3D-aware refine inside the DDIM loop: LGM reconstruction and a splat
+re-render whose re-encoded latents stand in for x0.
+
+Port of ``videomv_tpu/inference/refine.py`` (reference unet_t2v.py:401-433
+via diffusion_ddim.py:256-259). At a refine step the denoiser's eps becomes
+a fake x0; four canonical views are VAE-decoded; the LGM reconstructs
+Gaussians from them and their Plücker rays; every view is re-rendered
+(background 0.5, the packed payload) and re-encoded with the VAE posterior
+mode (no noise enters), and those latents are the x0 of the DDIM update.
+The multi-device render (``view_mesh``) comes with the multi-device slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..data.cameras import GSCameraSettings
+from ..ops.gaussian_splat import render_gaussians
+
+__all__ = ["REFINE_VIEW_IDXS", "make_refine_fn"]
+
+# ImageNet normalisation of the LGM input (reference unet_t2v.py:383-385)
+_VID_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+_VID_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+REFINE_VIEW_IDXS = (0, 6, 12, 18)  # reference unet_t2v.py:407
+
+
+def make_refine_fn(
+    *,
+    unet,
+    vae,
+    lgm,
+    diffusion,
+    scale_factor: float,
+    batch: int,
+    gs_settings: GSCameraSettings,
+    y: torch.Tensor,
+    zero_y: torch.Tensor,
+    cam: torch.Tensor,
+    gs_rays: torch.Tensor,
+    cam_view: torch.Tensor,
+    cam_view_proj: torch.Tensor,
+    uncond_mode: str = "full",
+    view_idxs: tuple = REFINE_VIEW_IDXS,
+) -> Callable:
+    """Build ``refine_fn(xt, t) -> (cond_x0, uncond_x0)`` latents.
+
+    ``gs_rays`` [1, V, 6, S, S] Plücker rays; ``cam_view`` /
+    ``cam_view_proj`` [1, V, 4, 4] splat cameras (``data.cameras``).
+
+    ``uncond_mode``: ``"full"`` (the reference's semantics) runs both CFG
+    rows through the refine; ``"shared"`` (the shipped serving default)
+    refines the cond row only and returns it for both rows, which collapses
+    the guidance to the cond refine at half the cost."""
+    if uncond_mode not in ("full", "shared"):
+        raise ValueError(f"uncond_mode must be 'full' or 'shared', got {uncond_mode!r}")
+    shared = uncond_mode == "shared"
+    dev = gs_rays.device
+    idxs = torch.as_tensor(view_idxs, dtype=torch.long, device=dev)
+    in_size, out_size = gs_settings.input_size, gs_settings.output_size
+    vid_mean = torch.as_tensor(_VID_MEAN, device=dev).reshape(1, 1, 3, 1, 1)
+    vid_std = torch.as_tensor(_VID_STD, device=dev).reshape(1, 1, 3, 1, 1)
+    bg = torch.full((3,), 0.5, device=dev)  # the reference's bg_color_factor 0.5
+
+    @torch.no_grad()
+    def refine_fn(xt: torch.Tensor, t: torch.Tensor):
+        if shared:
+            x2, t2, y2, c2 = xt, t, y, cam
+        else:
+            x2, t2 = torch.cat([xt, xt]), torch.cat([t, t])
+            y2, c2 = torch.cat([y, zero_y]), torch.cat([cam, cam])
+        eps = unet(x2, t2, y=y2, camera_data=c2)
+        fake_x0 = diffusion.pred_to_x0(eps, x2, t2)
+
+        # decode the canonical views of every row: [b2·4, 3, H, W]
+        dec = fake_x0.index_select(2, idxs)                    # [b2, 4ch, 4, h, w]
+        b2 = dec.shape[0]
+        dec = dec.permute(0, 2, 1, 3, 4).reshape(b2 * len(view_idxs), 4, *dec.shape[-2:])
+        imgs = vae.decode(dec / scale_factor)
+        imgs = imgs.reshape(b2, len(view_idxs), 3, *imgs.shape[-2:])
+        imgs = ((imgs * 0.5 + 0.5).clamp(0.0, 1.0) - vid_mean) / vid_std
+
+        rays = gs_rays.index_select(1, idxs).expand(b2, -1, -1, -1, -1)
+        gaussians = lgm(torch.cat([imgs, rays], dim=2))       # [b2, N, 14]
+
+        out = render_gaussians(
+            gaussians, cam_view.expand(b2, -1, -1, -1), cam_view_proj.expand(b2, -1, -1, -1),
+            bg_color=bg, img_size=out_size, fovy_deg=gs_settings.fovy, packed=True)
+        renders = out["image"]                                  # [b2, V, 3, S, S]
+        V = renders.shape[1]
+        r = renders.reshape(b2 * V, 3, out_size, out_size)
+        if out_size != in_size:  # pixel-centre nearest, as jax.image.resize
+            r = F.interpolate(r, size=(in_size, in_size), mode="nearest-exact")
+        z = vae.encode_first_stage((r - 0.5) / 0.5, scale_factor).float()
+        z = z.reshape(b2, V, 4, *z.shape[-2:]).permute(0, 2, 1, 3, 4)
+        if shared:
+            return z, z
+        return z[:batch], z[batch:]
+
+    return refine_fn

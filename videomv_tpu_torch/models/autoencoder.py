@@ -179,5 +179,11 @@ class AutoencoderKL(nn.Module):
         mean, logvar = moments.chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
 
+    def encode_first_stage(self, x: torch.Tensor, scale_factor: float = 1.0) -> torch.Tensor:
+        """Latents of images [B, 3, H, W]: the posterior mode (its mean)
+        times ``scale_factor``; no noise is drawn, as in the JAX package's
+        GS refine."""
+        return scale_factor * self.encode_moments(x)[0]
+
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z.to(self.dtype))).float()

@@ -1,7 +1,8 @@
-"""Attention and feed-forward ops, each a hand-written CUDA kernel beside
-its plain PyTorch twin (modules ``flash_attention`` and ``fused_ffn``)."""
+"""Attention, feed-forward and splat-composite ops, each a hand-written CUDA
+kernel beside its plain PyTorch twin (modules ``flash_attention``,
+``fused_ffn`` and ``splat``), and the Gaussian-splat geometry around them."""
 
-from . import flash_attention, fused_ffn
+from . import flash_attention, fused_ffn, splat
 from .attention import attention_eligible, dot_product_attention
 from .fused_ffn import ffn_eligible, geglu_ffn, geglu_ffn_reference
 
@@ -15,14 +16,17 @@ __all__ = [
     "geglu_ffn_reference",
     "launch_counts",
     "reset_launch_counts",
+    "splat",
 ]
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
-    return {"flash_attention": flash_attention.LAUNCHES, "geglu_ffn": fused_ffn.LAUNCHES}
+    return {"flash_attention": flash_attention.LAUNCHES, "geglu_ffn": fused_ffn.LAUNCHES,
+            "splat_composite": splat.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     flash_attention.LAUNCHES = 0
     fused_ffn.LAUNCHES = 0
+    splat.LAUNCHES = 0

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source into a shared library with a plain
-C interface, which is loaded with ``ctypes`` (no PyTorch headers, so the
+Every source is compiled by its own ``nvcc`` call, all started together,
+and the objects are linked into one shared library with a plain C
+interface, which is loaded with ``ctypes`` (no PyTorch headers, so the
 build takes seconds). The library is keyed by a hash of the sources and the
 flags, built on first use into ``build/kernels/`` at the repository root, and
 reused while the sources are unchanged. ``-Xptxas -v`` is passed so the build log records each
@@ -38,6 +39,7 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vmv_flash_attn_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_float, _c_void_p],
     "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
+    "vmv_splat_composite_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p],
 }
 
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
@@ -75,23 +77,32 @@ def _source_hash(paths) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise with the output of the first
+    that fails. Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(nvcc: str, srcs, out_path: str) -> str:
-    """Compile into a temporary file and move it into place atomically, so
-    concurrent builders never load a half-written library."""
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out_path))
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, out_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    """One ``nvcc -c`` per source, all started together, then one link into
+    a temporary file that is moved into place atomically, so concurrent
+    builders never load a half-written library."""
+    out_dir = os.path.dirname(out_path)
+    os.makedirs(out_dir, exist_ok=True)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        log = _run_all([[nvcc, *compile_flags, "-I", CSRC_DIR, "-c", "-o", o, s]
+                        for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        log += _run_all([[nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", lib, *objs]])
+        os.replace(lib, out_path)
     return log
 
 

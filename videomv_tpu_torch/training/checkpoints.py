@@ -33,6 +33,7 @@ __all__ = [
     "load_matched",
     "load_torch_checkpoint",
     "rename_clip_key",
+    "rename_lgm_key",
     "rename_unet_key",
     "rename_vae_key",
     "state_dict_from_flax",
@@ -58,11 +59,21 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 
 def rename_unet_key(k: str) -> Optional[str]:
-    """UNet ``.pth`` keys: the LGM submodule waits for the GS-refine slice;
-    a ``module.`` (DDP) prefix is stripped (JAX ``convert_unet``)."""
+    """UNet ``.pth`` keys: the LGM submodule (``lgm_big.*``) is loaded by
+    its own job (``rename_lgm_key``); a ``module.`` (DDP) prefix is
+    stripped (JAX ``convert_unet``)."""
     if k.startswith("lgm_big."):
         return None
     return k[len("module."):] if k.startswith("module.") else k
+
+
+def rename_lgm_key(k: str) -> Optional[str]:
+    """LGM keys of ``model.safetensors`` (``unet.down_blocks...``,
+    ``conv.weight``) or the ``lgm_big.`` subtree of a UNet checkpoint; the
+    LPIPS loss network is not part of it (JAX ``convert_lgm``)."""
+    if k.startswith("lgm_big."):
+        k = k[len("lgm_big."):]
+    return None if "lpips_loss" in k else k
 
 
 def rename_vae_key(k: str) -> Optional[str]:
