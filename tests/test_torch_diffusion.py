@@ -78,3 +78,32 @@ def test_ddim_cfg_loop_matches_jax(mean_type, steps):
 def test_unported_mean_type_raises():
     with pytest.raises(NotImplementedError):
         TDiffusion(**dict(LINEAR_SD, mean_type="x_{t-1}"))
+
+
+def test_q_sample_and_offset_noise_match_jax():
+    """The forward process on the same noise, and the offset noise's shape
+    and statistics (the two frameworks' generators never agree on values)."""
+    rs = np.random.default_rng(4)
+    x0 = rs.standard_normal((3, 4, 5, 6, 6)).astype(np.float32)
+    noise = rs.standard_normal(x0.shape).astype(np.float32)
+    t = np.asarray([0, 417, 999])
+    want = JDiffusion(**LINEAR_SD).q_sample(jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise))
+    got = TDiffusion(**LINEAR_SD).q_sample(torch.from_numpy(x0), torch.from_numpy(t),
+                                           torch.from_numpy(noise))
+    assert rel_err(got.numpy(), np.asarray(want)) <= SAMPLE_REL_TOL
+
+    plain = TDiffusion(**LINEAR_SD)
+    offset = TDiffusion(noise_strength=0.5, **LINEAR_SD)
+    big = torch.zeros(8, 4, 6, 32, 32)
+    a = plain.sample_noise(big, torch.Generator().manual_seed(1))
+    b = offset.sample_noise(big, torch.Generator().manual_seed(1))
+    assert torch.equal(a, plain.sample_noise(big, torch.Generator().manual_seed(1)))
+    assert a.shape == b.shape == big.shape
+    # the same first draw, plus one offset per (batch, channel, frame)
+    per_frame = (b - a).reshape(8 * 4 * 6, -1)
+    assert float((per_frame - per_frame[:, :1]).abs().max()) <= 1e-6
+    assert 0.3 < float(per_frame[:, 0].std()) < 0.7        # 0.5 · N(0, 1)
+    assert abs(float(a.std()) - 1.0) < 0.01
+    jb = JDiffusion(noise_strength=0.5, **LINEAR_SD).sample_noise(
+        jax.random.PRNGKey(0), jnp.zeros(big.shape))
+    assert abs(float(jb.std()) - float(b.std())) < 0.02     # sqrt(1 + 0.25) on both

@@ -1,8 +1,9 @@
 """GPU-only checks of the port's CUDA kernels beyond the main path's shapes
 (head_dim 128, single-tile and odd-tile sequences, token counts that are not
 a tile multiple, the widest and narrowest C; the splat composite with both
-payloads and an overflowing pair capacity), the wrappers' input checks,
-and the module dispatch. Each test needs a CUDA device and skips without
+payloads and an overflowing pair capacity; its backward kernel against its
+twin and against autograd of the forward twin), the wrappers' input checks,
+the backward of the attention and FFN wrappers, and the module dispatch. Each test needs a CUDA device and skips without
 one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
 
@@ -51,6 +52,7 @@ def test_flash_attention_matches_fp32(cuda, shape):
     kern = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts_by_shape()["flash_attention"] == {shape: 1}
     ok, errs = _within_bound(kern, attention_reference(q, k, v),
                              attention_reference(q.float(), k.float(), v.float()))
     assert ok, errs
@@ -86,6 +88,7 @@ def test_geglu_ffn_matches_fp32(cuda, t, c, inner):
     kern = geglu_ffn(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert ops.launch_counts()["geglu_ffn"] == 1
+    assert ops.launch_counts_by_shape()["geglu_ffn"] == {(t, c, inner): 1}
     ok, errs = _within_bound(kern, geglu_ffn_reference(x, w1, b1, w2, b2),
                              geglu_ffn_reference(x.float(), w1.float(), b1, w2.float(), b2))
     assert ok, errs
@@ -164,8 +167,136 @@ def test_splat_composite_rejects_what_it_cannot_take(cuda):
         splat.composite(payload, ts, tc, 8)  # tile grid disagrees
     with pytest.raises(ValueError):
         splat.composite(payload, ts.cpu(), tc, 4)  # another device
-    with pytest.raises(NotImplementedError):
-        splat.composite(payload.requires_grad_(), ts, tc, 4)  # forward only
+    with pytest.raises(ValueError, match="packed"):
+        splat.composite(payload.requires_grad_(), ts, tc, 4)  # 8 rows under grad
+
+
+@pytest.mark.parametrize("max_pairs", [1 << 15, 2048])  # 2048 overflows
+def test_splat_composite_backward_matches_its_twin(cuda, max_pairs):
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, _ = _splat_bins(cuda, False, max_pairs)
+    saved = splat.composite(payload, ts, tc, 4)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    grad = torch.randn(saved.shape, generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    kern = splat.composite_backward(payload, ts, tc, saved, grad, 4)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["splat_composite_bwd"] == 1
+    twin = splat.composite_backward_reference(payload, ts, tc, saved, grad, 4)
+    scale = twin.abs().max().item()
+    assert scale > 1.0
+    # fp32 both; the 256-pixel sums in another order
+    assert (kern - twin).abs().max().item() <= 2e-4 * scale
+    assert kern[:, 10:].abs().max().item() == 0.0
+    live = int(tc[0].sum())
+    if live < payload.shape[-1]:  # beyond the last segment (none when the capacity is full)
+        assert kern[0, :, live:].abs().max().item() == 0.0
+    # two launches give the same bits (one writer per pair, no atomics)
+    again = splat.composite_backward(payload, ts, tc, saved, grad, 4)
+    assert torch.equal(kern, again)
+    # the autograd.Function: kernel forward and kernel backward
+    p = payload.clone().requires_grad_()
+    ops.reset_launch_counts()
+    (auto,) = torch.autograd.grad(splat.composite(p, ts, tc, 4), p, grad)
+    assert ops.launch_counts()["splat_composite"] == 1
+    assert ops.launch_counts()["splat_composite_bwd"] == 1
+    assert torch.equal(auto, kern)
+    # and autograd through the forward twin agrees
+    p = payload.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(splat.composite_reference(p, ts, tc, 4), p, grad)
+    assert (kern - ref).abs().max().item() <= 2e-4 * scale
+
+
+def test_splat_composite_backward_rejects_what_it_cannot_take(cuda):
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, _ = _splat_bins(cuda, False, 1 << 15, views=2)
+    saved = splat.composite(payload, ts, tc, 4)
+    grad = torch.ones_like(saved)
+    with pytest.raises(ValueError):
+        splat.composite_backward(payload, ts, tc, saved[:, :, :4].contiguous(), grad, 4)
+    with pytest.raises(ValueError):
+        splat.composite_backward(payload, ts, tc, saved, grad.double(), 4)
+    with pytest.raises(ValueError):
+        splat.composite_backward(payload, ts, tc, saved, grad.cpu(), 4)
+    with pytest.raises(ValueError):
+        splat.composite_backward(payload[:, :8].contiguous(), ts, tc, saved, grad, 4)
+
+
+def test_render_gradient_through_the_kernels_matches_the_dense_oracle(cuda):
+    """d loss / d Gaussians through projection, binning and kernels 3 + 4
+    against autograd through the dense oracle, one 32² view."""
+    import numpy as np
+
+    from videomv_tpu_torch.data.cameras import (
+        GSCameraSettings, orbit_c2w_opengl, prepare_gs_training)
+    from videomv_tpu_torch.ops import gaussian_splat as tgs
+
+    rs = np.random.default_rng(3)
+    n = 96
+    quat = rs.normal(size=(n, 4))
+    g = np.concatenate([rs.uniform(-0.5, 0.5, (n, 3)), rs.uniform(0.2, 1.0, (n, 1)),
+                        rs.uniform(0.02, 0.08, (n, 3)),
+                        quat / np.linalg.norm(quat, axis=1, keepdims=True),
+                        rs.uniform(0, 1, (n, 3))], axis=1).astype(np.float32)
+    cams = prepare_gs_training(orbit_c2w_opengl(1, 10.0, 1.5),
+                               GSCameraSettings(input_size=32, output_size=32), ray_size=8)
+    cv = torch.from_numpy(cams["cam_view"]).to(cuda)
+    cvp = torch.from_numpy(cams["cam_view_proj"]).to(cuda)
+    bg = torch.zeros(3, device=cuda)
+    grads = {}
+    for backend in ("binned", "dense"):
+        x = torch.from_numpy(g).to(cuda)[None].requires_grad_()
+        ops.reset_launch_counts()
+        out = tgs.render_gaussians(x, cv, cvp, bg_color=bg, img_size=32, backend=backend)
+        loss = (out["image"] ** 2).sum() + out["alpha"].sum() + 0.3 * (out["depth"] ** 2).sum()
+        (grads[backend],) = torch.autograd.grad(loss, x)
+        want = 1 if backend == "binned" else 0
+        assert ops.launch_counts()["splat_composite"] == want
+        assert ops.launch_counts()["splat_composite_bwd"] == want
+    # the tolerance of the CPU test against the JAX dense gradient
+    torch.testing.assert_close(grads["binned"], grads["dense"], rtol=1e-3, atol=1e-4)
+
+
+def _rel_max(got, want):
+    return max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 16, 64), (2, 256, 4, 128)])
+def test_flash_attention_backward_is_the_twins(cuda, shape):
+    """Kernel forward; the backward recomputes through the plain twin, so it
+    equals autograd through the twin alone."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(gen, cuda, *shape).requires_grad_() for _ in range(3))
+    go = _randn(gen, cuda, *shape)
+    ops.reset_launch_counts()
+    out = flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1 and out.requires_grad
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert ops.launch_counts()["flash_attention"] == 1  # the backward launches nothing
+    want = torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
+    assert _rel_max(got, want) <= 1e-3
+    with torch.no_grad():
+        flash_attention(q, k, v)  # no graph, same kernel
+    assert ops.launch_counts()["flash_attention"] == 2
+
+
+def test_geglu_ffn_backward_is_the_twins(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    t, c, inner = 4100, 64, 256
+    args = [_randn(gen, cuda, t, c), _randn(gen, cuda, 2 * inner, c, scale=c ** -0.5),
+            _randn(gen, cuda, 2 * inner, scale=0.1, dtype=torch.float32),
+            _randn(gen, cuda, c, inner, scale=inner ** -0.5),
+            _randn(gen, cuda, c, scale=0.1, dtype=torch.float32)]
+    args = [a.requires_grad_() for a in args]
+    go = _randn(gen, cuda, t, c)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(geglu_ffn(*args), args, go)
+    assert ops.launch_counts()["geglu_ffn"] == 1
+    want = torch.autograd.grad(geglu_ffn_reference(*args), args, go)
+    assert _rel_max(got, want) <= 1e-3
 
 
 def test_module_dispatch_reaches_the_kernels(cuda):
@@ -180,8 +311,16 @@ def test_module_dispatch_reaches_the_kernels(cuda):
         block(x, ctx)
     # attn1 (self, 1024 tokens) and the FFN (8192 tokens) take the kernels;
     # attn2 (77 context tokens) stays plain
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 1, "splat_composite": 0}
+    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 1, "splat_composite": 0,
+                                   "splat_composite_bwd": 0}
     ops.reset_launch_counts()
     with torch.no_grad():
         block.train()(x, ctx)  # training mode: the FFN gate is closed
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0}
+    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0,
+                                   "splat_composite_bwd": 0}
+    # under grad the attention goes through its autograd.Function
+    ops.reset_launch_counts()
+    block(x.clone().requires_grad_(), ctx).float().sum().backward()
+    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0,
+                                   "splat_composite_bwd": 0}
+    assert all(p.grad is not None for p in block.parameters())

@@ -1,5 +1,5 @@
-"""The port stands alone: importing it never pulls in JAX, Flax or the JAX
-package, and its kernel build has no fallback."""
+"""The port stands alone: importing it never pulls in JAX, Flax, optax, orbax
+or the JAX package, and its kernel build has no fallback."""
 
 import ast
 import os
@@ -10,25 +10,49 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "videomv_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "videomv_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "videomv_tpu")
+
+
+# the entry points and leaf modules; everything else is imported by these
+IMPORTS = (
+    "videomv_tpu_torch", "videomv_tpu_torch.inference", "videomv_tpu_torch.ops",
+    "videomv_tpu_torch.inference.__main__", "videomv_tpu_torch.training",
+    "videomv_tpu_torch.models", "videomv_tpu_torch.utils", "videomv_tpu_torch.config",
+    "videomv_tpu_torch.training.__main__", "videomv_tpu_torch.training.engine",
+    "videomv_tpu_torch.training.lgm_refine", "videomv_tpu_torch.training.optim",
+    "videomv_tpu_torch.models.lpips", "videomv_tpu_torch.data.datasets",
+    "videomv_tpu_torch.ops.gs_cameras", "videomv_tpu_torch.utils.device",
+)
 
 
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+def _package_modules():
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, fn), REPO)[:-3].replace(os.sep, ".")
+                yield rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
+
+
 def test_import_leaves_jax_out_of_sys_modules():
+    """Importing ``IMPORTS`` loads every module of the package and none of
+    the forbidden ones."""
     prog = (
         "import sys\n"
-        "import videomv_tpu_torch, videomv_tpu_torch.inference, videomv_tpu_torch.ops\n"
-        "import videomv_tpu_torch.inference.__main__, videomv_tpu_torch.training\n"
-        "import videomv_tpu_torch.models, videomv_tpu_torch.utils, videomv_tpu_torch.config\n"
-        "bad = sorted(m for m in sys.modules if m in %r or m.split('.')[0] in %r)\n"
-        "print(','.join(bad))\n" % (FORBIDDEN, FORBIDDEN))
+        + "".join(f"import {m}\n" for m in IMPORTS)
+        + "bad = sorted(m for m in sys.modules if m in %r or m.split('.')[0] in %r)\n"
+        "print(','.join(bad))\n" % (FORBIDDEN, FORBIDDEN)
+        + "print(','.join(m for m in %r if m not in sys.modules))\n"
+        % (sorted(_package_modules()),))
     r = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == ""
+    bad, never_imported = r.stdout.split("\n")[:2]
+    assert bad.strip() == ""
+    assert never_imported.strip() == "", "add these modules to IMPORTS"
 
 
 def test_no_source_file_imports_jax():

@@ -53,7 +53,18 @@ def test_attention_wrapper_on_cpu_runs_the_twin():
                                   attention_reference(q, k, v).numpy())
     np.testing.assert_array_equal(dot_product_attention(q, k, v).numpy(),
                                   attention_reference(q, k, v).numpy())
-    assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
+                                   "splat_composite_bwd": 0}
+    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {}}
+
+
+def test_launch_counts_by_shape_reset_with_the_totals():
+    ops.flash_attention.LAUNCHES_BY_SHAPE[(1, 256, 2, 64)] = 3
+    ops.fused_ffn.LAUNCHES_BY_SHAPE[(4096, 320, 1280)] = 2
+    assert ops.launch_counts_by_shape() == {"flash_attention": {(1, 256, 2, 64): 3},
+                                            "geglu_ffn": {(4096, 320, 1280): 2}}
+    ops.reset_launch_counts()
+    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {}}
 
 
 def test_attention_mask_and_bias_match_jax():
@@ -81,6 +92,52 @@ def test_ffn_twin_matches_jax_kernel(interpret_kernels, t, c, inner):
     args = [torch.from_numpy(a) for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
     np.testing.assert_allclose(geglu_ffn_reference(*args).numpy(), want, rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(geglu_ffn(*args).numpy(), geglu_ffn_reference(*args).numpy())
+
+
+def test_attention_function_backward_matches_jax_grad(monkeypatch):
+    """The autograd.Function the CUDA path uses (kernel forward, backward by
+    autograd through the plain twin on the saved inputs), with the twin
+    standing in for the kernel launch, against ``jax.grad`` of the JAX
+    package's reference: the counterpart of its ``custom_vjp``."""
+    import videomv_tpu_torch.ops.flash_attention as tfa
+
+    monkeypatch.setattr(tfa, "_launch", attention_reference)
+    rs = np.random.default_rng(11)
+    q, k, v = _qkv(rs, 2, 64, 64, 2, 32)
+    go = rs.standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jfa._reference(*a) * go), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tfa._FlashAttention.apply(tq, tk, tv)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(go))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+    # on a CPU tensor the public wrapper differentiates the twin directly
+    got_cpu = torch.autograd.grad(flash_attention(tq, tk, tv), (tq, tk, tv), torch.from_numpy(go))
+    for g, w in zip(got_cpu, got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_ffn_function_backward_matches_jax_grad(monkeypatch):
+    import videomv_tpu_torch.ops.fused_ffn as tff
+
+    monkeypatch.setattr(tff, "_launch", geglu_ffn_reference)
+    rs = np.random.default_rng(12)
+    t, c, inner = 64, 32, 128
+    x = (rs.standard_normal((t, c)) * 0.5).astype(np.float32)
+    w1 = (rs.standard_normal((c, 2 * inner)) * 0.05).astype(np.float32)  # JAX [C, 2I]
+    b1 = (rs.standard_normal(2 * inner) * 0.1).astype(np.float32)
+    w2 = (rs.standard_normal((inner, c)) * 0.05).astype(np.float32)      # JAX [I, C]
+    b2 = (rs.standard_normal(c) * 0.1).astype(np.float32)
+    go = rs.standard_normal((t, c)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jff.geglu_ffn_reference(*a) * go),
+                    argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
+    got = torch.autograd.grad(tff._GegluFFN.apply(*args), args, torch.from_numpy(go))
+    want = [np.asarray(w) for w in want]
+    want[1], want[3] = want[1].T, want[3].T  # to the nn.Linear layouts
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL)
 
 
 # One CFG forward of the shipped UNet at 24 views (48 rows): every call shape

@@ -2,8 +2,8 @@
 
 A copy of ``videomv_tpu/data/cameras.py`` (and of ``proj_matrix`` from
 ``videomv_tpu/ops/gs_cameras.py``); tests pin the two together. The rest of
-``gs_cameras.py`` derives the same matrices on the device for training and
-comes with the training slice.
+``gs_cameras.py`` derives the same matrices on the device for training: its
+port is ``ops/gs_cameras.py``.
 
 Parity targets: the reference orbit camera-to-world matrices
 (utils/camera_utils.py:4-62, OpenGL look-at with the OpenGL→Blender axis

@@ -1,9 +1,12 @@
-"""Gaussian diffusion algebra for DDIM sampling, on torch tensors.
+"""Gaussian diffusion algebra for DDIM sampling and the forward process, on
+torch tensors.
 
-Port of what DDIM sampling needs from ``videomv_tpu/diffusion/gaussian.py``:
-the per-timestep constants (``DiffusionParams``) and the prediction algebra
-(``pred_to_x0``, ``x0_to_eps``, ``scale_timesteps``). The posterior, the
-losses and the variational bound wait for the training slice.
+Port of what DDIM sampling and the LGM-refine finetune need from
+``videomv_tpu/diffusion/gaussian.py``: the per-timestep constants
+(``DiffusionParams``), the prediction algebra (``pred_to_x0``,
+``x0_to_eps``, ``scale_timesteps``) and the forward process
+(``sample_noise`` with the per-frame offset noise, ``q_sample``). The
+posterior, the losses and the variational bound wait for the UNet finetune.
 
 The schedule tables are computed in float64 numpy exactly as the JAX
 package computes them, kept in float64, and cast to the working dtype on
@@ -66,10 +69,11 @@ class GaussianDiffusion:
         mean_type: str = "eps",
         var_type: str = "fixed_small",
         rescale_timesteps: bool = False,
+        noise_strength: float = 0.0,
         **training_only,
     ):
-        """Takes the config's ``Diffusion`` block; its training-only keys
-        (``loss_type``, ``noise_strength``...) are accepted and unused."""
+        """Takes the config's ``Diffusion`` block; its other training-only
+        keys (``loss_type``...) are accepted and unused."""
         if mean_type not in ("eps", "v", "x0"):
             raise NotImplementedError(f"mean_type {mean_type!r} is not ported")
         if var_type not in {"learned", "learned_range", "fixed_large", "fixed_small"}:
@@ -79,6 +83,7 @@ class GaussianDiffusion:
         self.mean_type = mean_type
         self.var_type = var_type
         self.rescale_timesteps = rescale_timesteps
+        self.noise_strength = float(noise_strength)
         self._tables: Dict[tuple, torch.Tensor] = {}
 
     def _bcast(self, name: str, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +97,25 @@ class GaussianDiffusion:
             self._tables[key] = vec
         out = vec.index_select(0, t.long()).to(x.dtype)
         return out.reshape(t.shape + (1,) * (x.ndim - 1))
+
+    def sample_noise(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """Gaussian noise shaped like ``x0 [B, C, F, ...]`` from an explicit
+        generator, plus ``noise_strength`` times one draw per (batch,
+        channel, frame) broadcast over the frame's pixels (the reference's
+        offset noise, diffusion_ddim.py:71-78)."""
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+        if self.noise_strength > 0:
+            b, c, f = x0.shape[:3]
+            offset = torch.randn((b, c, f) + (1,) * (x0.ndim - 3), generator=generator,
+                                 device=x0.device, dtype=x0.dtype)
+            noise = noise + self.noise_strength * offset
+        return noise
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Sample from q(x_t | x_0)."""
+        return (self._bcast("sqrt_alphas_cumprod", t, x0) * x0
+                + self._bcast("sqrt_one_minus_alphas_cumprod", t, x0) * noise)
 
     def pred_to_x0(self, out: torch.Tensor, xt: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Convert the model's raw prediction (per ``mean_type``) to x0."""

@@ -3,8 +3,9 @@
     python -m videomv_tpu_torch.inference --cfg configs/t2v_infer.yaml \
         [--debug] [--seed N] [--device cuda] [k v ...]
 
-Takes the arguments of the JAX package's ``inference.py`` (plus
-``--device``, default ``cuda`` when available), reads the same YAML files
+Takes the arguments of the JAX package's ``inference.py`` plus ``--device``.
+It runs on the card: without a CUDA device it stops with an error, and
+``--device cpu`` is the only way onto the CPU. It reads the same YAML files
 (merging the linked train YAML via ``vldm_cfg``), reads prompts from
 ``test_list_path`` and writes under ``log_dir``, for every prompt, the
 plain sample; with ``UNet.use_lgm_refine`` (as ``configs/t2v_infer.yaml``
@@ -28,8 +29,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--cfg", dest="cfg_file", default="configs/t2v_infer.yaml")
     p.add_argument("--debug", action="store_true", default=False)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu only when asked for)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
 
@@ -42,9 +43,11 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     import torch
 
     from ..config import load_inference_config
+    from ..utils.device import resolve_device
     from ..utils.video_io import save_multiview_video
     from .pipeline import T2VPipeline
 
+    device = resolve_device(args.device)
     cfg = load_inference_config(args.cfg_file, opts=args.opts or [])
     if args.seed is not None:
         cfg.seed = args.seed
@@ -56,7 +59,6 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     if task != "inference_text2video_entrance":
         raise SystemExit(f"unknown TASK_TYPE {task}")
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
     logging.info("torch %s device %s", torch.__version__, device)
     pipe = T2VPipeline(cfg, device=device, seed=int(cfg.get("seed", 0)))
     pipe.init_params()

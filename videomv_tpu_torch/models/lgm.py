@@ -18,7 +18,14 @@ of the up path, and the rotation normalised over dim 1 (across all N
 Gaussians, the reference's bare ``F.normalize``). Attention goes through
 ``ops.dot_product_attention``, so its long self-attention takes the CUDA
 flash kernel under the JAX package's gate (head_dim 64 at 16² and 8²;
-head_dim 32 at 32² stays plain). Inference only: no rematerialisation.
+head_dim 32 at 32² stays plain).
+
+For training, ``use_checkpoint`` rematerialises every resnet block and every
+attention block in the backward pass (``torch.utils.checkpoint``, the JAX
+package's per-block ``nn.remat``): only the skip list and the block
+boundaries stay stored. The parameters stay in whatever dtype the module
+holds (fp32 masters when trained); bf16 compute comes from running the
+forward under ``torch.autocast``, which casts the weights on use.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 
@@ -138,9 +146,10 @@ class _Block(nn.Module):
         if attns:
             self.attns = nn.ModuleList(attns)
 
-    def layer(self, j: int, x: torch.Tensor) -> torch.Tensor:
-        x = self.nets[j](x)
-        return self.attns[j](x) if hasattr(self, "attns") else x
+    def layer(self, j: int, x: torch.Tensor, run=None) -> torch.Tensor:
+        run = run or (lambda m, t: m(t))
+        x = run(self.nets[j], x)
+        return run(self.attns[j], x) if hasattr(self, "attns") else x
 
 
 class LGMUNet(nn.Module):
@@ -154,8 +163,9 @@ class LGMUNet(nn.Module):
                  up_channels=(1024, 1024, 512, 256, 128),
                  up_attention=(True, True, True, False, False),
                  layers_per_block: int = 2, skip_scale: float = math.sqrt(0.5),
-                 num_frames: int = 4):
+                 num_frames: int = 4, use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         kw = dict(skip_scale=skip_scale)
         akw = dict(num_frames=num_frames, skip_scale=skip_scale)
         self.conv_in = nn.Conv2d(in_channels, down_channels[0], 3, padding=1)
@@ -198,25 +208,32 @@ class LGMUNet(nn.Module):
         self.conv_out = nn.Conv2d(up_channels[-1], out_channels, 3, padding=1)
         self.layers_per_block = layers_per_block
 
+    def _run(self, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """One resnet or attention block, rematerialised in the backward
+        pass when ``use_checkpoint`` is set and a gradient is recorded."""
+        if self.use_checkpoint and torch.is_grad_enabled() and x.requires_grad:
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_in(x)
         xss = [x]
         for blk in self.down_blocks:
             for j in range(len(blk.nets)):
-                x = blk.layer(j, x)
+                x = blk.layer(j, x, self._run)
                 xss.append(x)
             if hasattr(blk, "downsample"):
                 x = blk.downsample(x)
                 xss.append(x)
 
-        x = self.mid_block.nets[0](x)
+        x = self._run(self.mid_block.nets[0], x)
         if hasattr(self.mid_block, "attns"):
-            x = self.mid_block.attns[0](x)
-        x = self.mid_block.nets[1](x)
+            x = self._run(self.mid_block.attns[0], x)
+        x = self._run(self.mid_block.nets[1], x)
 
         for blk in self.up_blocks:
             for j in range(len(blk.nets)):
-                x = blk.layer(j, torch.cat([x, xss.pop()], dim=1))
+                x = blk.layer(j, torch.cat([x, xss.pop()], dim=1), self._run)
             if hasattr(blk, "upsample"):
                 x = blk.upsample(F.interpolate(x, scale_factor=2, mode="nearest"))
         return self.conv_out(F.silu(self.norm_out(x)))
@@ -229,14 +246,14 @@ class LGM(nn.Module):
     layout (pos 3, opacity 1, scale 3, rotation 4, rgb 3) that
     ``ops.gaussian_splat`` and ``ops.ply_io`` take."""
 
-    def __init__(self, opt: LGMOptions = LGMOptions()):
+    def __init__(self, opt: LGMOptions = LGMOptions(), use_checkpoint: bool = False):
         super().__init__()
         self.opt = opt
         self.unet = LGMUNet(
             in_channels=9, out_channels=14, down_channels=opt.down_channels,
             down_attention=opt.down_attention, mid_attention=opt.mid_attention,
             up_channels=opt.up_channels, up_attention=opt.up_attention,
-            num_frames=opt.num_input_views)
+            num_frames=opt.num_input_views, use_checkpoint=use_checkpoint)
         self.conv = nn.Conv2d(14, 14, 1)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

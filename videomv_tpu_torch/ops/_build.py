@@ -40,6 +40,7 @@ _SIGNATURES = {
     "vmv_flash_attn_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_float, _c_void_p],
     "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
     "vmv_splat_composite_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p],
+    "vmv_splat_composite_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
 }
 
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")

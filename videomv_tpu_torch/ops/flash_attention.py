@@ -9,7 +9,13 @@ fp32 sampling mode therefore never reaches it). On a CPU tensor it runs
 ``attention_reference``, the plain twin.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel; ``LAUNCHES_BY_SHAPE`` holds the
+same count split by the ``(B, S, H, D)`` of each launch.
+
+Under grad ``flash_attention`` is a ``torch.autograd.Function`` like the JAX
+package's ``custom_vjp``: the forward is the kernel, the backward
+differentiates ``attention_reference`` on the saved q, k, v (the JAX package
+has no backward kernel either; it recomputes through its plain reference).
 """
 
 from __future__ import annotations
@@ -20,9 +26,10 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "attention_reference", "flash_attention"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_SHAPE", "attention_reference", "flash_attention"]
 
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: dict = {}
 
 
 def attention_reference(
@@ -68,17 +75,9 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
         raise ValueError(f"flash_attention: sequence {s} is not a multiple of 64")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Self-attention over ``[B, S, H, D]``: the CUDA kernel on a CUDA
-    tensor, the plain twin on a CPU tensor. Forward only."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    if not q.is_cuda:
-        return attention_reference(q, k, v)
     _check_cuda_inputs(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel is forward-only; its backward "
-            "comes with the training slice")
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     lib = _build.load_library()
@@ -87,4 +86,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         b, s, h, d, float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vmv_flash_attn_fwd")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(b, s, h, d)] = LAUNCHES_BY_SHAPE.get((b, s, h, d), 0) + 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel; backward: autograd through the plain twin on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = attention_reference(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), grad.to(out.dtype))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Self-attention over ``[B, S, H, D]``: the CUDA kernel on a CUDA
+    tensor (differentiable: the backward recomputes through the plain twin),
+    the plain twin on a CPU tensor."""
+    if not q.is_cuda:
+        return attention_reference(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _launch(q, k, v)

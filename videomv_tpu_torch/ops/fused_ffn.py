@@ -9,7 +9,15 @@ tensor it launches the hand-written kernel (bf16 x and weights, fp32
 biases) or raises; on a CPU tensor it runs ``geglu_ffn_reference``. The
 fp32 sampling mode never reaches the kernel (``ffn_eligible`` is bf16-only).
 
-``LAUNCHES`` counts kernel launches (and nothing else).
+``LAUNCHES`` counts kernel launches (and nothing else);
+``LAUNCHES_BY_SHAPE`` holds the same count split by the ``(T, C, I)`` of
+each launch.
+
+Under grad ``geglu_ffn`` is a ``torch.autograd.Function`` like the JAX
+package's ``custom_vjp``: the forward is the kernel, the backward
+differentiates ``geglu_ffn_reference`` on the saved inputs. The module gate
+(``models.blocks.FeedForward``) still keeps training mode, where dropout
+sits between the two products, on the plain path.
 """
 
 from __future__ import annotations
@@ -19,9 +27,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["LAUNCHES", "ffn_eligible", "geglu_ffn", "geglu_ffn_reference"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_SHAPE", "ffn_eligible", "geglu_ffn", "geglu_ffn_reference"]
 
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: dict = {}
 
 
 def geglu_ffn_reference(x, w1, b1, w2, b2):
@@ -74,17 +83,9 @@ def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
         raise ValueError("geglu_ffn: x must be 16-byte aligned")
 
 
-def geglu_ffn(x, w1, b1, w2, b2):
-    """x [T, C] → [T, C]: the CUDA kernel on a CUDA tensor, the plain twin on
-    a CPU tensor. Forward only."""
+def _launch(x, w1, b1, w2, b2):
     global LAUNCHES
-    if not x.is_cuda:
-        return geglu_ffn_reference(x, w1, b1, w2, b2)
     _check_cuda_inputs(x, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "geglu_ffn: the CUDA kernel is forward-only; its backward comes "
-            "with the training slice")
     t, c = x.shape
     inner = w2.shape[1]
     out = torch.empty_like(x)
@@ -94,4 +95,33 @@ def geglu_ffn(x, w1, b1, w2, b2):
         out.data_ptr(), t, c, inner, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "vmv_geglu_ffn_fwd")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(t, c, inner)] = LAUNCHES_BY_SHAPE.get((t, c, inner), 0) + 1
     return out
+
+
+class _GegluFFN(torch.autograd.Function):
+    """Forward: the kernel; backward: autograd through the plain twin on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = geglu_ffn_reference(*args)
+        return torch.autograd.grad(out, args, grad.to(out.dtype))
+
+
+def geglu_ffn(x, w1, b1, w2, b2):
+    """x [T, C] → [T, C]: the CUDA kernel on a CUDA tensor (differentiable:
+    the backward recomputes through the plain twin), the plain twin on a CPU
+    tensor."""
+    if not x.is_cuda:
+        return geglu_ffn_reference(x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _GegluFFN.apply(x, w1, b1, w2, b2)
+    return _launch(x, w1, b1, w2, b2)

@@ -18,7 +18,9 @@ residual transmittance.
 pixel); ``render_gaussians(backend="auto")`` takes the tile-binned path of
 ``ops.splat`` (the CUDA composite kernel) for CUDA tensors and the dense
 oracle for CPU tensors, as the JAX package takes its Pallas path on a TPU.
-Geometry is fp32 whatever the input dtype.
+Geometry is fp32 whatever the input dtype. Both paths are differentiable
+in the Gaussians: the dense oracle and the projection through autograd, the
+binned path through the composite's backward kernel (16-row payload only).
 """
 
 from __future__ import annotations
@@ -117,13 +119,16 @@ def project_prepared(prep: Dict[str, torch.Tensor], cam_view: torch.Tensor,
     det = torch.where(det == 0.0, torch.ones_like(det), det)
     inv_cov = torch.stack([c / det, -b / det, a / det], dim=-1)
 
-    mid = 0.5 * (a + c)
-    lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
-    # opacity-aware extent: beyond σ_max·√(2·ln(255·o)) the 1/255 alpha
-    # cutoff kills every pixel; capped at the CUDA rasterizer's 3σ
-    cut = torch.sqrt(torch.clamp(
-        2.0 * torch.log(255.0 * torch.clamp_min(opacity, 1e-12)), 0.0, 9.0))
-    radius = torch.ceil(cut * torch.sqrt(lam1))
+    # the radius only selects tiles (ceil, then integer tile spans): no
+    # gradient flows through it, so none is recorded
+    with torch.no_grad():
+        mid = 0.5 * (a + c)
+        lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+        # opacity-aware extent: beyond σ_max·√(2·ln(255·o)) the 1/255 alpha
+        # cutoff kills every pixel; capped at the CUDA rasterizer's 3σ
+        cut = torch.sqrt(torch.clamp(
+            2.0 * torch.log(255.0 * torch.clamp_min(opacity, 1e-12)), 0.0, 9.0))
+        radius = torch.ceil(cut * torch.sqrt(lam1))
     shape = depth.shape
     return (mean2d, inv_cov, depth, radius, color.expand(*shape, 3),
             opacity.expand(shape), valid)
@@ -217,7 +222,8 @@ def render_gaussians(
     backend: ``"auto"`` (the binned path with the CUDA composite kernel for
     CUDA tensors, ``"dense"`` for CPU tensors), ``"dense"`` or
     ``"binned"``. ``packed`` (binned only): the 8-row payload with colours,
-    opacity and depth truncated to bf16, for inference."""
+    opacity and depth truncated to bf16, for inference; it is not
+    differentiable and raises when a gradient is required."""
     if bg_color is None:
         bg_color = torch.ones(3, device=gaussians.device)
     bg_color = bg_color.to(device=gaussians.device, dtype=torch.float32)

@@ -1,7 +1,8 @@
 """Tile-binned Gaussian splatting: binning in plain PyTorch, the composite
-as the CUDA kernel ``csrc/splat_composite.cu`` beside its plain twin.
+and its backward as the CUDA kernels ``csrc/splat_composite.cu`` and
+``csrc/splat_composite_bwd.cu``, each beside its plain twin.
 
-Port of ``videomv_tpu/ops/splat_pallas.py`` (forward). The binning runs on
+Port of ``videomv_tpu/ops/splat_pallas.py``. The binning runs on
 the device in plain PyTorch, as the JAX package runs it in XLA outside any
 kernel: projection, a stable depth argsort, per-Gaussian tile spans, a
 fixed-capacity expansion into (tile, Gaussian) pairs in depth order, one
@@ -18,6 +19,18 @@ the background, alpha = 1 − T, depth). On a CUDA tensor it launches the
 kernel, or raises; on a CPU tensor it runs ``composite_reference``, the
 plain twin. ``LAUNCHES`` counts kernel launches and nothing else.
 
+``composite`` is a ``torch.autograd.Function`` (the JAX package's
+``_composite`` custom_vjp): its backward replaces the Pallas kernel
+``_tile_bwd_kernel`` and returns ``dpayload [R, 16, P]`` from the saved
+payload, segments and forward output. On a CUDA tensor the backward
+launches its kernel (``BWD_LAUNCHES`` counts those launches) or raises; on a
+CPU tensor it runs ``composite_backward_reference``. Every pair belongs to
+one tile, so the gradient has one writer per column and is deterministic.
+The binning around it (gathers and selects) differentiates through
+autograd: the payload gather's backward scatter-adds each pair's gradient
+onto its Gaussian. Only the 16-row payload is differentiable; the packed
+payload under grad raises, as in the JAX package.
+
 Two payload layouts, as in the JAX package: 16 rows fp32 (mx, my, ica,
 icb, icc, r, g, b, opacity, depth, 6 zero rows) and the 8-row packed
 inference payload (mx, my, ica, icb, icc, r|g, b|opacity, depth|0, the
@@ -26,8 +39,7 @@ pairs truncated to bf16 and packed two to an fp32 word by ``_pack2``).
 Left out, as TPU-layout work with no counterpart here: the counting-sort
 placement (``counting=True``, a measured loss on the TPU), the
 ``expand_mode`` tiers (bit-identical to the one expansion kept), and the
-MXU prefix-sum tricks. The backward (``_tile_bwd_kernel``) comes with the
-training slice; this module is forward-only.
+MXU prefix-sum tricks.
 """
 
 from __future__ import annotations
@@ -38,10 +50,13 @@ from . import _build
 from .gaussian_splat import prepare_gaussians, project_prepared
 
 __all__ = [
+    "BWD_LAUNCHES",
     "LAUNCHES",
     "TILE",
     "bin_pairs",
     "composite",
+    "composite_backward",
+    "composite_backward_reference",
     "composite_reference",
     "rasterize_binned_batch",
     "untile",
@@ -50,6 +65,7 @@ __all__ = [
 TILE = 16
 MAX_SPAN = 16  # tiles per side a Gaussian may cover (the JAX package's default)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _HI_MASK = -65536  # 0xFFFF0000 as int32
 
@@ -241,21 +257,123 @@ def _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side):
         raise ValueError(f"splat composite: grid ({n_tiles}, {R}) too large")
 
 
-def composite(payload: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
-              n_tiles_side: int) -> torch.Tensor:
-    """Front-to-back composite of each tile's pairs: ``payload [R, 8 or 16,
-    P]``, ``tile_start``/``tile_count [R, T]`` int32 → ``[R, T, 5, 256]``
-    (RGB before the background, alpha, depth). The CUDA kernel, one launch
-    for all R views, on a CUDA tensor; the plain twin on a CPU tensor.
-    Forward only. The caller guarantees each segment lies inside ``P``."""
+def composite_backward_reference(payload: torch.Tensor, tile_start: torch.Tensor,
+                                 tile_count: torch.Tensor, saved: torch.Tensor,
+                                 grad: torch.Tensor, n_tiles_side: int, chunk: int = 64
+                                 ) -> torch.Tensor:
+    """The plain twin of the backward kernel (the JAX ``_tile_bwd_kernel``'s
+    math): the VJP of ``composite_reference`` from the forward's output
+    ``saved`` and its gradient ``grad`` (both ``[R, T, 5, 256]``). Walks the
+    chunks as the forward twin does, carrying the transmittance and the
+    inclusive prefix of Σ_ch gC·c·w, and per (pixel, pair) forms
+
+        dα = (gC·c_i)·T_i − (gC·C_tot − gC·Cum_i − gA·T_N) / max(1 − α, 0.01)
+
+    with dpower = dα·α and dopacity = dα·exp(power), both zero where the pair
+    is dead or α sits on its 0.99 clamp. Returns ``dpayload [R, 16, P]``:
+    rows 0-1 d mean2d, 2-4 d inv_cov, 5-7 d rgb, 8 d opacity, 9 d depth, the
+    rest (and every pair outside a segment) zero."""
+    R, rows, P = payload.shape
+    if rows != 16:
+        raise ValueError("splat composite backward: only the 16-row payload is differentiable")
+    T = n_tiles_side * n_tiles_side
+    dev = payload.device
+    start = tile_start.reshape(-1).long()
+    count = tile_count.reshape(-1).long()
+    base = (torch.arange(R, device=dev) * P).repeat_interleave(T)
+    px, py = (c.repeat(R, 1)[..., None] for c in _pixel_coords(n_tiles_side, dev))
+    flat = payload.transpose(1, 2).reshape(R * P, rows)
+    sv = saved.reshape(R * T, 5, TILE * TILE).transpose(1, 2)     # [RT, 256, 5]
+    gr = grad.reshape(R * T, 5, TILE * TILE).transpose(1, 2)
+    ch = [0, 1, 2, 4]                                             # r, g, b, depth
+    gC = gr[..., ch]                                              # [RT, 256, 4]
+    # gC·C_tot − gA·T_N: the part of the suffix term that no pair changes
+    tail = (gC * sv[..., ch]).sum(-1) - gr[..., 3] * (1.0 - sv[..., 3])
+    trans = torch.ones(R * T, TILE * TILE, device=dev)
+    cum = torch.zeros(R * T, TILE * TILE, device=dev)
+    dflat = torch.zeros(R * P, rows, device=dev)
+    j = torch.arange(chunk, device=dev)
+    n_chunks = -(-int(count.max()) // chunk) if count.numel() else 0
+    for ci in range(n_chunks):
+        pos = ci * chunk + j
+        live = pos[None, :] < count[:, None]                      # [RT, chunk]
+        gidx = base[:, None] + torch.clamp(start[:, None] + pos[None, :], max=P - 1)
+        d = flat[gidx]                                            # [RT, chunk, 16]
+        rgbd = torch.cat([d[..., 5:8], d[..., 9:10]], dim=-1)
+        ia, ib, ic = (d[:, None, :, k] for k in (2, 3, 4))
+        dx = px - d[:, None, :, 0]                                # [RT, 256, chunk]
+        dy = py - d[:, None, :, 1]
+        power = -0.5 * (ia * dx * dx + ic * dy * dy) - ib * dx * dy
+        expp = torch.exp(power)
+        raw = d[:, None, :, 8] * expp
+        alpha = torch.clamp_max(raw, 0.99)
+        dead = (power > 0.0) | (alpha < 1.0 / 255.0) | ~live[:, None, :]
+        alpha = torch.where(dead, torch.zeros_like(alpha), alpha)
+        gmask = ~dead & (raw < 0.99)
+        logs = torch.log1p(-alpha)
+        incl = torch.cumsum(logs, dim=-1)
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1)
+        t_excl = torch.exp(excl) * trans[..., None]
+        w = alpha * t_excl
+        g1 = torch.bmm(gC, rgbd.transpose(1, 2))                  # gC·c_i [RT, 256, chunk]
+        wg = g1 * w
+        gcum = torch.cumsum(wg, dim=-1) + cum[..., None]
+        one_minus = torch.clamp_min(1.0 - alpha, 0.01)
+        dalpha = g1 * t_excl - (tail[..., None] - gcum) / one_minus
+        zero = torch.zeros_like(dalpha)
+        dpower = torch.where(gmask, dalpha * alpha, zero)
+        dop = torch.where(gmask, dalpha * expp, zero)
+        d_rgbd = torch.bmm(w.transpose(1, 2), gC)                 # [RT, chunk, 4]
+        contrib = torch.stack([
+            (dpower * (ia * dx + ib * dy)).sum(1), (dpower * (ic * dy + ib * dx)).sum(1),
+            (dpower * (-0.5 * dx * dx)).sum(1), (dpower * (-dx * dy)).sum(1),
+            (dpower * (-0.5 * dy * dy)).sum(1),
+            d_rgbd[..., 0], d_rgbd[..., 1], d_rgbd[..., 2], dop.sum(1), d_rgbd[..., 3],
+        ], dim=-1)                                                # [RT, chunk, 10]
+        dflat[gidx[live], :10] = contrib[live]                    # one writer per pair
+        trans = trans * torch.exp(incl[..., -1])
+        cum = cum + wg.sum(-1)
+    return dflat.reshape(R, P, rows).transpose(1, 2).contiguous()
+
+
+def composite_backward(payload: torch.Tensor, tile_start: torch.Tensor,
+                       tile_count: torch.Tensor, saved: torch.Tensor, grad: torch.Tensor,
+                       n_tiles_side: int) -> torch.Tensor:
+    """The composite's VJP: ``dpayload [R, 16, P]`` from the 16-row payload,
+    the segments, the forward's output and its gradient (both ``[R, T, 5,
+    256]``). The CUDA kernel, one launch for all R views, on a CUDA tensor;
+    the plain twin on a CPU tensor."""
+    global BWD_LAUNCHES
+    if not payload.is_cuda:
+        return composite_backward_reference(payload, tile_start, tile_count, saved, grad,
+                                            n_tiles_side)
+    _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side)
+    R, rows, P = payload.shape
+    if rows != 16:
+        raise ValueError("splat composite backward: only the 16-row payload is differentiable")
+    tiles = (R, n_tiles_side * n_tiles_side, 5, TILE * TILE)
+    for name, t in (("saved", saved), ("grad", grad)):
+        if (t.device != payload.device or t.dtype != torch.float32
+                or tuple(t.shape) != tiles or not t.is_contiguous()):
+            raise ValueError(f"splat composite backward: {name} must be contiguous float32 "
+                             f"{list(tiles)} on {payload.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    dpayload = torch.empty_like(payload)
+    lib = _build.load_library()
+    err = lib.vmv_splat_composite_bwd(
+        payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), saved.data_ptr(),
+        grad.data_ptr(), dpayload.data_ptr(), R, P, n_tiles_side,
+        torch.cuda.current_stream(payload.device).cuda_stream)
+    _build.check(err, "vmv_splat_composite_bwd")
+    BWD_LAUNCHES += 1
+    return dpayload
+
+
+def _composite_forward(payload, tile_start, tile_count, n_tiles_side):
     global LAUNCHES
     if not payload.is_cuda:
         return composite_reference(payload, tile_start, tile_count, n_tiles_side)
     _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side)
-    if torch.is_grad_enabled() and payload.requires_grad:
-        raise NotImplementedError(
-            "splat composite: the CUDA kernel is forward-only; its backward comes "
-            "with the training slice")
     R, rows, P = payload.shape
     out = torch.empty((R, n_tiles_side * n_tiles_side, 5, TILE * TILE),
                       device=payload.device, dtype=torch.float32)
@@ -266,6 +384,40 @@ def composite(payload: torch.Tensor, tile_start: torch.Tensor, tile_count: torch
     _build.check(err, "vmv_splat_composite_fwd")
     LAUNCHES += 1
     return out
+
+
+class _Composite(torch.autograd.Function):
+    """Forward: the composite kernel (or its twin on the CPU); backward: the
+    backward kernel (or its twin) on the saved payload, segments and output."""
+
+    @staticmethod
+    def forward(ctx, payload, tile_start, tile_count, n_tiles_side):
+        if ctx.needs_input_grad[0] and payload.shape[1] != 16:
+            raise ValueError(
+                "differentiating the packed 8-row splat payload is unsupported: render "
+                "with packed=False on a gradient path")
+        out = _composite_forward(payload, tile_start, tile_count, n_tiles_side)
+        ctx.save_for_backward(payload, tile_start, tile_count, out)
+        ctx.n_tiles_side = n_tiles_side
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        payload, tile_start, tile_count, out = ctx.saved_tensors
+        dpayload = composite_backward(payload, tile_start, tile_count, out,
+                                      grad.contiguous().float(), ctx.n_tiles_side)
+        return dpayload, None, None, None
+
+
+def composite(payload: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
+              n_tiles_side: int) -> torch.Tensor:
+    """Front-to-back composite of each tile's pairs: ``payload [R, 8 or 16,
+    P]``, ``tile_start``/``tile_count [R, T]`` int32 → ``[R, T, 5, 256]``
+    (RGB before the background, alpha, depth). The CUDA kernel, one launch
+    for all R views, on a CUDA tensor; the plain twin on a CPU tensor.
+    Differentiable in the 16-row payload (backward: ``composite_backward``).
+    The caller guarantees each segment lies inside ``P``."""
+    return _Composite.apply(payload, tile_start, tile_count, n_tiles_side)
 
 
 def untile(out_tiles: torch.Tensor, n_tiles_side: int) -> torch.Tensor:

@@ -34,6 +34,7 @@ __all__ = [
     "load_torch_checkpoint",
     "rename_clip_key",
     "rename_lgm_key",
+    "rename_lpips_key",
     "rename_unet_key",
     "rename_vae_key",
     "state_dict_from_flax",
@@ -74,6 +75,21 @@ def rename_lgm_key(k: str) -> Optional[str]:
     if k.startswith("lgm_big."):
         k = k[len("lgm_big."):]
     return None if "lpips_loss" in k else k
+
+
+def rename_lpips_key(k: str) -> Optional[str]:
+    """LPIPS ``vgg.pth`` keys, in the attribute form (``lin0.model.1.weight``)
+    or the ModuleList form (``lins.0.model.1.weight``), with or without the
+    ``lpips_loss.`` prefix of an LGM checkpoint; the scaling layer's buffers
+    are constants of the module (JAX ``convert_lpips``)."""
+    if k.startswith("lpips_loss."):
+        k = k[len("lpips_loss."):]
+    if k.startswith("scaling_layer."):
+        return None
+    if k.startswith("lins."):
+        idx, rest = k[len("lins."):].split(".", 1)
+        k = f"lin{idx}.{rest}"
+    return k
 
 
 def rename_vae_key(k: str) -> Optional[str]:
