@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (videomv_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, one card, ~7 minutes
+    python3 chip_smoke.py            # every phase, one card, ~9 minutes
 
 Phases (each prints its lines; a failed phase exits non-zero):
   1. environment: torch/CUDA versions, device, power limit, optional deps;
@@ -13,8 +13,11 @@ Phases (each prints its lines; a failed phase exits non-zero):
      on one 2-view 512² chunk of the train step (error vs its twin), the
      composite's backward kernel on the same two calls (error vs its twin,
      relative to the largest gradient), the binned render of one view
-     against the dense oracle, and the backward of the attention and FFN
-     wrappers against autograd of their twins; CUDA-event times in turns
+     against the dense oracle, the backward of the attention and FFN
+     wrappers against autograd of their twins, and the fused spatial block
+     at the UNet's 32² / C = 320 stage over the I2V and T2V contexts (error
+     vs its fp32 twin, held to twice the bf16 module path's; the module
+     path's time beside it; its backward); CUDA-event times in turns
      plain/kernel/kernel/plain beside each kernel's bound (the larger of its
      bytes over 3.35 TB/s and its operations over the peak rate of their
      type) and, for attention, the time of one
@@ -34,7 +37,17 @@ Phases (each prints its lines; a failed phase exits non-zero):
      step and the LGM's plain head_dim-32 attention, and the device
      kernels of two CFG forwards under torch.profiler by class and name
      (trace written to workspace/profile/);
-  8. train: configs/t2v_train.yaml with UNet.use_lgm_refine True at full
+  8. i2v: configs/i2vgen_xl_infer.yaml as shipped (refine on, shared uncond,
+     guidance 6.0) at full width — one UNetSD_I2VGen CFG forward at 8 views
+     with the fused spatial block switched on, bf16 on the card vs fp32 on
+     the host, and against the switch off; requests from
+     data/images/test_obj.png: plain with the switch off, plain with it on,
+     refined with it on (the first of each pair is warm-up), with asserted
+     launch counts; one CFG forward by kernel class, on and off; the CLI's
+     main() once with the switch on. The script sets and restores
+     VIDEOMV_ENABLE_FUSED_SPATIAL around each part; the other phases run
+     with it unset;
+  9. train: configs/t2v_train.yaml with UNet.use_lgm_refine True at full
      width (frozen UNet, VAE and text tower, LGM big trained, 8 supervision
      views at 512², LPIPS, AdamW) — T2VTrainer takes 3 steps at batch 1 on
      the synthetic dataset with asserted launch counts, finite losses, the
@@ -46,7 +59,8 @@ The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. There is no CPU fallback: with
 no CUDA device the script fails before printing any result.
 
-``--phases env,build,kernels`` runs a subset (for bring-up of one part).
+``--phases env,build,kernels`` runs a subset (for bring-up of one part);
+``--kernels fused_spatial`` cuts the kernels phase to the fused block.
 """
 
 from __future__ import annotations
@@ -74,6 +88,9 @@ KERNELS = {
     "splat_composite_bwd": dict(
         route="cuda", source="videomv_tpu_torch/csrc/splat_composite_bwd.cu",
         replaces="videomv_tpu/ops/splat_pallas.py:446"),
+    "fused_spatial": dict(
+        route="cuda", source="videomv_tpu_torch/csrc/fused_spatial.cu",
+        replaces="videomv_tpu/ops/fused_spatial.py:98"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
@@ -112,9 +129,23 @@ PLAIN_BY_SHAPE = {"flash_attention": {(48, 1024, 5, 64): 250, (48, 256, 10, 64):
                   "geglu_ffn": {(49152, 320, 1280): 500, (12288, 640, 2560): 500,
                                 (49152, 512, 2048): 50}}
 PLAIN_LAUNCHES = {"flash_attention": 500, "geglu_ffn": 1050, "splat_composite": 0,
-                  "splat_composite_bwd": 0}
+                  "splat_composite_bwd": 0, "fused_spatial": 0}
 REFINED_LAUNCHES = {"flash_attention": 533, "geglu_ffn": 1050, "splat_composite": 3,
-                    "splat_composite_bwd": 0}
+                    "splat_composite_bwd": 0, "fused_spatial": 0}
+# The I2V requests of configs/i2vgen_xl_infer.yaml (50 steps, CFG rows
+# batched, refine `shared` at 20/30/40). With the fused spatial block switched
+# on, each forward's five 32² SpatialTransformers are one fused launch each and
+# leave kernels 1 and 2: 5 fused + 5 attention (16²) + 16 FFN per forward
+# instead of 10 + 21; the refined request adds the LGM's 11 attentions and one
+# composite per refine step.
+I2V_PLAIN_OFF = dict(PLAIN_LAUNCHES)
+I2V_PLAIN_ON = {"flash_attention": 250, "geglu_ffn": 800, "splat_composite": 0,
+                "splat_composite_bwd": 0, "fused_spatial": 250}
+I2V_REFINED_ON = {"flash_attention": 283, "geglu_ffn": 800, "splat_composite": 3,
+                  "splat_composite_bwd": 0, "fused_spatial": 250}
+I2V_FUSED_BY_SHAPE = {"plain": {(48, 1024, 320, 145): 250},
+                      "refined": {(48, 1024, 320, 145): 235, (24, 1024, 320, 145): 15}}
+I2V_CFG = "configs/i2vgen_xl_infer.yaml"
 # One LGM-refine train step at batch 1 (configs/t2v_train.yaml with
 # UNet.use_lgm_refine True): the frozen UNet's forward at 24 rows without
 # grad (5 + 5 attention launches; in training mode its FFN gate is closed),
@@ -125,7 +156,7 @@ REFINED_LAUNCHES = {"flash_attention": 533, "geglu_ffn": 1050, "splat_composite"
 TRAIN_ATTN_SHAPES = {(24, 1024, 5, 64): 5, (24, 256, 10, 64): 5,
                      (1, 1024, 16, 64): 10, (1, 256, 16, 64): 12}
 TRAIN_LAUNCHES = {"flash_attention": 32, "geglu_ffn": 0, "splat_composite": 8,
-                  "splat_composite_bwd": 4}
+                  "splat_composite_bwd": 4, "fused_spatial": 0}
 TRAIN_VIEW_CHUNK, TRAIN_RENDER_SIZE = 2, 512
 TRAIN_STEPS = 3
 # d loss / d Gaussians through kernels 3 and 4 vs through their twins, on the
@@ -179,7 +210,15 @@ REFINE_STAGE_TOL = {"unet": 5e-2, "vae.decode": 5e-2, "lgm": 2.5e-1,
 # weights on an H100); the refined latents are held to a relative L2 error
 # |d|/|ref| instead.
 REFINE_L2_TOL = 0.5
-PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "train")
+# The fused spatial block (kernel 5) at the UNet's 32² / C = 320 stage, as
+# (rows, context tokens) with its calls per I2V request with the flag on: 50
+# CFG forwards at 48 rows over the 145-token I2V context (5 blocks each), the
+# `shared` refine's 3 forwards at 24 rows; the 77-token T2V context is checked
+# too (the flag serves T2V as well, no phase here drives it).
+SPATIAL_SHAPES = {(48, 145): 235, (24, 145): 15, (48, 77): 0}
+SPATIAL_S, SPATIAL_C, SPATIAL_HEADS, SPATIAL_CC = 1024, 320, 5, 1024
+SPATIAL_FLAG = "VIDEOMV_ENABLE_FUSED_SPATIAL"
+PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -531,12 +570,139 @@ def _splat_bwd_check(torch, payload, ts, tc, saved, nts, live_pairs, alive_point
                 alive_points=alive_points, alive_share=alive_points / (256 * live_pairs))
 
 
-def phase_kernels(torch):
+class _FusedSpatialFlag:
+    """Within ``with``, the fused spatial block's environment switch is set
+    (``on``) or unset, and restored after."""
+
+    def __init__(self, on):
+        self._on = on
+
+    def __enter__(self):
+        self._prev = os.environ.pop(SPATIAL_FLAG, None)
+        if self._on:
+            os.environ[SPATIAL_FLAG] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop(SPATIAL_FLAG, None)
+        if self._prev is not None:
+            os.environ[SPATIAL_FLAG] = self._prev
+
+
+def _spatial_bound(r, s, c, kv_len, cc, iff):
+    """x read and the output written once in bf16, the context and the
+    weights read once; the products of proj_in / proj_out, q/k/v/out of both
+    attentions (k2/v2 over the context), both attentions' logits and PV, and
+    the three feed-forward products."""
+    weights = 2 * (8 * c * c + 2 * c * cc + 3 * c * iff) + 4 * (13 * c + 2 * iff)
+    n_bytes = 2 * (2 * r * s * c + r * kv_len * cc) + weights
+    flops = (2 * r * s * c * c * 8 + 2 * r * kv_len * cc * c * 2
+             + 4 * r * s * (s + kv_len) * c + 6 * r * s * c * iff)
+    return _bound(n_bytes, flops, PEAK_BF16_FLOPS)
+
+
+def _spatial_kernel_checks(torch, dev):
+    """Kernel 5 against its fp32 twin at the served shapes, beside the bf16
+    module path (kernels 1 + 2 + PyTorch ops) for the same block: seeded
+    weights with proj_out not zeroed (a zero proj_out returns x and checks
+    nothing)."""
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.models.blocks import SpatialTransformer
+    from videomv_tpu_torch.ops.fused_spatial import (
+        fused_spatial_transformer, spatial_block_reference, spatial_params)
+    from videomv_tpu_torch.training.checkpoints import init_weights
+
+    s, c, heads, cc = SPATIAL_S, SPATIAL_C, SPATIAL_HEADS, SPATIAL_CC
+    side = int(math.isqrt(s))
+    mod = init_weights(SpatialTransformer(c, heads, 64, depth=1, context_dim=cc), seed=5,
+                       zero_init=False)
+    mod = mod.to(device=dev, dtype=torch.bfloat16).eval().requires_grad_(False)
+    params = spatial_params(mod, vector_dtype=torch.float32)
+    iff = params["w2"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    runs = []
+    for (r, kv_len), calls in SPATIAL_SHAPES.items():
+        x4 = torch.randn((r, c, side, side), generator=gen, device=dev).to(torch.bfloat16)
+        ctx = torch.randn((r, kv_len, cc), generator=gen, device=dev).to(torch.bfloat16)
+        x = x4.permute(0, 2, 3, 1).contiguous().view(r, s, c)
+
+        def module_path():
+            with _FusedSpatialFlag(False):
+                return mod(x4, ctx)
+
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            kern = fused_spatial_transformer(x, ctx, params, heads)
+            torch.cuda.synchronize()
+            if ops.launch_counts() != dict(_ZERO_COUNTS, fused_spatial=1):
+                fail("kernels", f"fused_spatial {(r, kv_len)}: counters {ops.launch_counts()}")
+            twin = spatial_block_reference(x, ctx, params, heads).float()
+            if any(ops.launch_counts()[k] for k in ("flash_attention", "geglu_ffn")):
+                fail("kernels", "the fused block's twin launched a kernel")
+            module = module_path().permute(0, 2, 3, 1).reshape(r, s, c)
+            mod_counts = ops.launch_counts()
+            k_err = (kern.float() - twin).abs().max().item()
+            m_err = (module.float() - twin).abs().max().item()
+            # through the module's own dispatch, flag on: the same bits
+            ops.reset_launch_counts()
+            with _FusedSpatialFlag(True):
+                via = mod(x4, ctx).permute(0, 2, 3, 1).reshape(r, s, c)
+            same = torch.equal(via, kern) and ops.launch_counts()["fused_spatial"] == 1
+            scale = twin.abs().max().item()
+            del twin, module, via
+            ms, plain_ms = _time_turns(
+                torch, lambda: spatial_block_reference(x, ctx, params, heads),
+                lambda: fused_spatial_transformer(x, ctx, params, heads), iters=5)
+            module_ms = _time_one(torch, module_path, iters=5)
+        ok = k_err <= 2 * m_err + KERNEL_EPS and same
+        bound_ms, bound_by = _spatial_bound(r, s, c, kv_len, cc, iff)
+        runs.append(dict(shape=[r, s, c, kv_len], calls_per_request=calls,
+                         calls_per_train_step=0, max_abs_err=k_err, module_err_vs_twin=m_err,
+                         ms=ms, plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+        say("kernels", f"fused_spatial x [{r}, {s}, {c}] ctx [{r}, {kv_len}, {cc}]: |k-twin(fp32)| "
+            f"{k_err:.3e}, bf16 module path |m-twin| {m_err:.3e} (bound 2x + {KERNEL_EPS:.0e}), "
+            f"max|twin| {scale:.3e}, module dispatch bit-identical {same}; kernel {ms:.4f} ms "
+            f"plain twin (fp32) {plain_ms:.4f} ms module path (kernels 1 + 2 + PyTorch ops, "
+            f"launches {mod_counts['flash_attention']} + {mod_counts['geglu_ffn']}) "
+            f"{module_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("kernels", f"fused_spatial {(r, kv_len)} outside its error bound")
+        del x4, x, ctx, kern
+    # backward through the autograd.Function (kernel forward, twin recompute)
+    r, kv_len = 2, 145
+    x = (torch.randn((r, s, c), generator=gen, device=dev)).to(torch.bfloat16).requires_grad_()
+    ctx = torch.randn((r, kv_len, cc), generator=gen, device=dev).to(torch.bfloat16)
+    go = torch.randn((r, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    pg = {k: v.clone().requires_grad_() for k, v in params.items()}
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(fused_spatial_transformer(x, ctx, pg, heads),
+                              [x, *pg.values()], go)
+    if ops.launch_counts()["fused_spatial"] != 1:
+        fail("kernels", "fused_spatial backward: the forward did not launch")
+    want = torch.autograd.grad(spatial_block_reference(x, ctx, pg, heads), [x, *pg.values()], go)
+    err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+              for g, w in zip(got, want))
+    say("kernels", f"fused_spatial backward [{r}, {s}, {c}]: dx and the 26 parameter gradients vs "
+        f"autograd of the twin, relative max {err:.3e} (bound {TWIN_BWD_TOL:.0e}) "
+        f"{'ok' if err <= TWIN_BWD_TOL else 'FAIL'}")
+    if not err <= TWIN_BWD_TOL:
+        fail("kernels", "fused_spatial backward differs from its twin's")
+    torch.cuda.empty_cache()
+    return runs
+
+
+_ZERO_COUNTS = {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
+                "splat_composite_bwd": 0, "fused_spatial": 0}
+
+
+def phase_kernels(torch, only=None):
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops.flash_attention import attention_reference, flash_attention
     from videomv_tpu_torch.ops.fused_ffn import geglu_ffn, geglu_ffn_reference
 
     dev = torch.device("cuda", 0)
+    if only == ["fused_spatial"]:  # bring-up of kernel 5 alone
+        return {"fused_spatial": _spatial_kernel_checks(torch, dev)}
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     results = {"flash_attention": [], "geglu_ffn": []}
@@ -655,6 +821,7 @@ def phase_kernels(torch):
         del x, w1, w2, b1, b2, kern, twin, ref32
     results["splat_composite"], results["splat_composite_bwd"] = _splat_kernel_checks(torch, dev)
     torch.cuda.empty_cache()
+    results["fused_spatial"] = _spatial_kernel_checks(torch, dev)
     return results
 
 
@@ -662,6 +829,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
                    help="comma-separated subset of " + ",".join(PHASES))
+    p.add_argument("--kernels", default="",
+                   help="'fused_spatial': the kernels phase checks kernel 5 alone")
     args = p.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
     unknown = set(phases) - set(PHASES)
@@ -674,11 +843,13 @@ def main(argv=None):
     smi = phase_env(torch)
     if "build" in phases or "kernels" in phases:
         phase_build()
-    kernel_results = phase_kernels(torch) if "kernels" in phases else {}
+    only = [s for s in args.kernels.split(",") if s] or None
+    kernel_results = phase_kernels(torch, only) if "kernels" in phases else {}
     # kernel -> launches of one plain request, one refined request, one train
     # step: each counted with the counters reset just before that path ran
     train_run = f"train run of {TRAIN_STEPS} steps"
-    by_path = {"plain request": {}, "refined request": {}, train_run: {}}
+    by_path = {"plain request": {}, "refined request": {}, "I2V plain request": {},
+               "I2V refined request": {}, train_run: {}}
     if "unet" in phases:
         phase_unet(torch)
     if "refine" in phases:
@@ -687,6 +858,8 @@ def main(argv=None):
         by_path["plain request"], by_path["refined request"] = phase_slice(torch)
     if "profile" in phases:
         phase_profile(torch)
+    if "i2v" in phases:
+        by_path["I2V plain request"], by_path["I2V refined request"] = phase_i2v(torch)
     if "train" in phases:
         by_path[train_run] = phase_train(torch)
 
@@ -694,12 +867,15 @@ def main(argv=None):
     # over one run of the path named in "path": each shape's time per call
     # (kernels phase) times its calls on that path. The attention kernel and
     # the two splat kernels are totalled over the train run, the FFN kernel
-    # (which a train step does not launch) over a refined request. launches
+    # (which a train step does not launch) over a refined request, the fused
+    # spatial block over a refined I2V request with its flag on. launches
     # is the count read after that path ran (null unless its phase ran).
     record = []
     for name, runs in kernel_results.items():
         if name == "geglu_ffn":
             path, calls, times = "refined request", "calls_per_request", 1
+        elif name == "fused_spatial":
+            path, calls, times = "I2V refined request", "calls_per_request", 1
         else:
             path, calls, times = train_run, "calls_per_train_step", TRAIN_STEPS
         used = [r for r in runs if r[calls]]
@@ -716,7 +892,7 @@ def main(argv=None):
             name=name, **KERNELS[name], launches=by_path[path].get(name), path=path,
             launches_by_path={k: v.get(name) for k, v in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in runs), ms=total("ms"),
-            plain_ms=total("plain_ms"), bound_ms=total("bound_ms"), bound_by=top["bound_by"],
+            kernel_ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"), bound_by=top["bound_by"],
             library_ms=total("library_ms"), shapes=runs))
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)
@@ -807,8 +983,7 @@ def phase_unet(torch):
     say("unet", f"dim 320 x (1,2,4,4), 8 views, CFG rows 2: bf16 card vs fp32 host "
         f"max|d|/max|ref| {rel:.3e} (bound {UNET_REL_TOL:.0e}), max|ref| "
         f"{out_host.abs().max().item():.3e}, launches {counts}, {time.time() - t0:.1f}s")
-    if counts != {"flash_attention": 10, "geglu_ffn": 21, "splat_composite": 0,
-                  "splat_composite_bwd": 0}:
+    if counts != dict(_ZERO_COUNTS, flash_attention=10, geglu_ffn=21):
         fail("unet", f"expected 10 attention + 21 FFN launches, got {counts}")
     if not rel <= UNET_REL_TOL:
         fail("unet", f"relative error {rel:.3e} above {UNET_REL_TOL}")
@@ -977,8 +1152,7 @@ def phase_refine(torch):
         fail("refine", f"refined latents {tuple(cond16.shape)} not finite or misshapen")
     if not torch.equal(cond16, uncond16):
         fail("refine", "shared uncond must return the cond row twice")
-    if counts16 != {"flash_attention": 21, "geglu_ffn": 21, "splat_composite": 1,
-                    "splat_composite_bwd": 0}:
+    if counts16 != dict(_ZERO_COUNTS, flash_attention=21, geglu_ffn=21, splat_composite=1):
         fail("refine", f"expected 21 attention + 21 FFN + 1 splat launches, got {counts16}")
     if any(counts32.values()):
         fail("refine", f"the fp32 reference launched kernels: {counts32}")
@@ -1024,7 +1198,7 @@ def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None):
             f"launches {counts}{pairs}")
         if counts != want:
             fail("slice", f"{tag}: expected launches {want}, got {counts}")
-        if by_shape is not None and shapes != by_shape:
+        if by_shape is not None and shapes != dict(by_shape, fused_spatial={}):
             fail("slice", f"{tag}: expected launches by shape {by_shape}, got {shapes}")
         if fr.dtype != np.uint8 or fr.shape != (24, 256, 256, 3):
             fail("slice", f"frames {fr.dtype} {fr.shape}, expected uint8 (24, 256, 256, 3)")
@@ -1093,7 +1267,202 @@ def phase_slice(torch):
     return counts_plain, counts
 
 
+def phase_i2v(torch):
+    """configs/i2vgen_xl_infer.yaml as shipped (no override), seeded weights,
+    on the card in bf16: (a) one full-width UNetSD_I2VGen CFG forward at 8
+    views with the fused spatial block switched on against the fp32 host
+    forward and against the card's forward with the switch off; (b) requests
+    from data/images/test_obj.png — plain with the switch off, plain with it
+    on, refined `shared` with it on (the first of each pair is warm-up) —
+    with latency, peak memory and asserted launch counts; (c) one CFG
+    forward's device time by class, switch on and off; (d) the CLI once with
+    the switch on. The script sets and restores the switch around each part.
+    Returns the launch counts of one plain and one refined request with the
+    switch on."""
+    import copy
+    import gc
+
+    import numpy as np
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.config import load_inference_config
+    from videomv_tpu_torch.data.cameras import orbit_camera_for_t2v
+    from videomv_tpu_torch.inference import I2VPipeline
+    from videomv_tpu_torch.inference.__main__ import main as cli_main
+    from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
+    from videomv_tpu_torch.models import UNetSD_I2VGen
+    from videomv_tpu_torch.training.checkpoints import init_weights
+
+    global _PIPE, _HOST_UNET
+    _PIPE = _HOST_UNET = None  # the T2V serving models are done
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.chdir(ROOT)
+    t0 = time.time()
+    cfg = load_inference_config(I2V_CFG)
+    if cfg.get("gs_refine_uncond") != "shared" or not cfg.UNet.get("use_lgm_refine"):
+        fail("i2v", f"{I2V_CFG} no longer ships the refine with gs_refine_uncond: shared")
+    with open(cfg.test_list_path) as fh:
+        images = [ln.strip() for ln in fh if ln.strip() and not ln.startswith("#")]
+    if not images or not os.path.exists(images[0]):
+        fail("i2v", f"no image listed in {cfg.test_list_path}")
+    with torch.device("meta"):
+        host = UNetSD_I2VGen(**unet_kwargs_from_cfg(cfg.UNet))
+    host = init_weights(host, seed=0, zero_init=False, device="cpu").eval().requires_grad_(False)
+    pipe = I2VPipeline(cfg, device="cuda")
+    for name, seed in _SEEDS.items():
+        init_weights(pipe.models[name], seed=seed, zero_init=False, device=pipe.device)
+    pipe.load_state_dicts(unet=host.state_dict())  # casts all to bf16
+    n_par = {k: sum(p.numel() for p in m.parameters()) / 1e6 for k, m in pipe.models.items()}
+    say("i2v", f"I2VPipeline of {I2V_CFG}: parameters (M) {n_par}, dtype {pipe.dtype}, guidance "
+        f"{cfg.guide_scale}, refine steps {tuple(cfg.get('gs_refine_steps', (20, 30, 40)))}; "
+        f"init {time.time() - t0:.1f}s")
+
+    # ---- (a) the full-width forward, 8 views, CFG rows 2
+    t0 = time.time()
+    rs = np.random.default_rng(0)
+    f = 8
+    x = rs.standard_normal((1, 4, f, 32, 32)).astype(np.float32)
+    y = rs.standard_normal((2, 77, 1024)).astype(np.float32)
+    local = rs.standard_normal((1, 4, 1, 32, 32)).astype(np.float32)
+    img = np.concatenate([rs.standard_normal((1, 1024)).astype(np.float32),
+                          np.zeros((1, 1024), np.float32)])
+    cam = orbit_camera_for_t2v(f)
+    args = dict(y=torch.from_numpy(y), camera_data=torch.from_numpy(np.concatenate([cam, cam])),
+                local_image=torch.from_numpy(np.concatenate([local, local])),
+                image=torch.from_numpy(img))
+    x2, t2 = torch.from_numpy(np.concatenate([x, x])), torch.tensor([981, 981])
+    card_args = {k: v.cuda() for k, v in args.items()}
+    outs, counts = {}, {}
+    with torch.no_grad():
+        for on in (True, False):
+            with _FusedSpatialFlag(on):
+                ops.reset_launch_counts()
+                outs[on] = pipe.unet(x2.cuda(), t2.cuda(), **card_args).cpu()
+                torch.cuda.synchronize()
+                counts[on] = ops.launch_counts()
+        torch.set_num_threads(os.cpu_count() or 1)
+        out_host = host(x2, t2, **args)
+    scale = out_host.abs().max().item()
+    rel = {on: ((outs[on] - out_host).abs().max() / scale).item() for on in outs}
+    on_off = ((outs[True] - outs[False]).abs().max() / scale).item()
+    say("i2v", f"UNetSD_I2VGen dim 320 x (1,2,4,4), 8 views, CFG rows 2, context 145: bf16 card "
+        f"vs fp32 host max|d|/max|ref| {rel[True]:.3e} with the fused block, {rel[False]:.3e} "
+        f"without (bound {UNET_REL_TOL:.0e}); on vs off {on_off:.3e}; max|ref| {scale:.3e}; "
+        f"launches on {counts[True]}, off {counts[False]}; {time.time() - t0:.1f}s")
+    if counts[True] != dict(_ZERO_COUNTS, fused_spatial=5, flash_attention=5, geglu_ffn=16):
+        fail("i2v", f"flag on: expected 5 fused + 5 attention + 16 FFN, got {counts[True]}")
+    if counts[False] != dict(_ZERO_COUNTS, flash_attention=10, geglu_ffn=21):
+        fail("i2v", f"flag off: expected 10 attention + 21 FFN, got {counts[False]}")
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        fail("i2v", "non-finite output on the card")
+    if not (rel[True] <= UNET_REL_TOL and rel[False] <= UNET_REL_TOL):
+        fail("i2v", f"relative error {rel} above {UNET_REL_TOL}")
+    del host, out_host, outs
+    gc.collect()
+
+    # ---- (b) requests
+    def serve(refine, on, want, fused_by_shape, tag, n=2):
+        last = None
+        for i in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with _FusedSpatialFlag(on), _PairLog():
+                ops.reset_launch_counts()
+                t1 = time.perf_counter()
+                out = pipe.generate_from_image(images[0], steps=50, use_gs_refine=refine,
+                                               seed=21 + i)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                got, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+            if os.environ.get(SPATIAL_FLAG):
+                fail("i2v", "the fused block's switch was left on")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            fr = out["frames"]
+            say("i2v", f"{tag} request {i} ({'warm-up' if i == 0 and n > 1 else 'timed'}) "
+                f"{images[0]!r}: {dt:.3f} s, peak {peak:.2f} GiB, frames {fr.dtype} "
+                f"{list(fr.shape)}, launches {got}")
+            if got != want:
+                fail("i2v", f"{tag}: expected launches {want}, got {got}")
+            if shapes["fused_spatial"] != fused_by_shape:
+                fail("i2v", f"{tag}: expected fused launches by shape {fused_by_shape}, got "
+                     f"{shapes['fused_spatial']}")
+            if fr.dtype != np.uint8 or fr.shape != (24, 256, 256, 3):
+                fail("i2v", f"frames {fr.dtype} {fr.shape}, expected uint8 (24, 256, 256, 3)")
+            if not np.isfinite(out["latents"]).all():
+                fail("i2v", "non-finite latents")
+            if last is not None and np.array_equal(last["frames"], fr):
+                fail("i2v", f"{tag}: two seeds gave identical views")
+            last = out
+        return last, got
+
+    plain_off, _ = serve(False, False, I2V_PLAIN_OFF, {}, "plain, switch off")
+    plain_on, counts_plain = serve(False, True, I2V_PLAIN_ON, I2V_FUSED_BY_SHAPE["plain"],
+                                   "plain, switch on")
+    refined_on, counts_refined = serve(True, True, I2V_REFINED_ON, I2V_FUSED_BY_SHAPE["refined"],
+                                       "refined shared, switch on")
+    # same seed, switch on vs off: two bf16 roundings of one sampler
+    d = np.abs(plain_on["latents"] - plain_off["latents"])
+    say("i2v", f"plain latents, switch on vs off (same seed): max|d| {d.max():.3e}, mean|d| "
+        f"{d.mean():.3e}, max|latent| {np.abs(plain_off['latents']).max():.3e}")
+    if np.array_equal(plain_on["frames"], refined_on["frames"]):
+        fail("i2v", "the refine left the sample unchanged")
+
+    # ---- (c) one CFG forward (48 rows) by class, switch on and off
+    gen = torch.Generator(device=pipe.device).manual_seed(0)
+    xf = torch.randn((2, 4, 24, 32, 32), generator=gen, device=pipe.device)
+    tf = torch.full((2,), 981, device=pipe.device)
+    with torch.no_grad():
+        rgb = np.asarray(plain_off["frames"][0], np.float32) / 255.0
+        yw = torch.cat([pipe.encode_text([""]), pipe._negative()])
+        emb = pipe.encode_image_clip(rgb)
+        lat = pipe.encode_local_latent(rgb)
+        cam24 = pipe._get_cameras(15.0, 2.0)[0].expand(2, -1, -1)
+        kw = dict(y=yw, camera_data=cam24, local_image=torch.cat([lat, lat]),
+                  image=torch.cat([emb, torch.zeros_like(emb)]))
+        clip_ms = _time_one(torch, lambda: pipe.encode_image_clip(rgb), 5)
+        lat_ms = _time_one(torch, lambda: pipe.encode_local_latent(rgb), 5)
+        fwd_ms = {}
+        for on in (False, True, True, False):
+            with _FusedSpatialFlag(on):
+                fwd_ms.setdefault(on, []).append(
+                    _time_one(torch, lambda: pipe.unet(xf, tf, **kw), 5))
+    say("profile", f"CUDA events, I2V CFG forward (48 rows, context 145): switch off "
+        f"{sum(fwd_ms[False]) / 2:.2f} ms, on {sum(fwd_ms[True]) / 2:.2f} ms (turns off / on / on "
+        f"/ off); ViT-H visual tower + resize {clip_ms:.2f} ms; reference-frame VAE encode "
+        f"{lat_ms:.2f} ms")
+    for on in (True, False):
+        with _FusedSpatialFlag(on):
+            _profile_forward(torch, lambda: pipe.unet(xf, tf, **kw),
+                             f"I2V CFG forward, fused block {'on' if on else 'off'}",
+                             f"profile_i2v_forward_{'on' if on else 'off'}.json")
+    del pipe, plain_off, plain_on, refined_on
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the CLI once, the switch on
+    t0 = time.time()
+    with _FusedSpatialFlag(True):
+        ops.reset_launch_counts()
+        written = cli_main(["--cfg", I2V_CFG, "--debug", "--device", "cuda"])
+        cli_counts = ops.launch_counts()
+    if (len(written) != 2 or not all(os.path.exists(p) for p in written)
+            or "_gs" not in os.path.basename(written[1])
+            or "test_obj" not in os.path.basename(written[0])):
+        fail("i2v", f"the CLI wrote {written}, expected the plain and the _gs output")
+    want = {k: I2V_PLAIN_ON[k] + I2V_REFINED_ON[k] for k in I2V_PLAIN_ON}
+    if cli_counts != want:
+        fail("i2v", f"the CLI launched {cli_counts}, expected {want}")
+    say("i2v", f"VIDEOMV_ENABLE_FUSED_SPATIAL=1 CLI main() --debug (no override) wrote {written} "
+        f"in {time.time() - t0:.1f}s, launches {cli_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts_plain, counts_refined
+
+
 _KERNEL_CLASSES = (  # (class, name substrings), first match wins
+    ("fused_spatial (ours)", ("spatial_block_kernel", "spatial_kv_kernel", "ctx_kv_kernel",
+                              "gn_stats_kernel")),
     ("flash_attention (ours)", ("flash_attn_fwd_kernel",)),
     ("geglu_ffn (ours)", ("geglu_ffn_kernel",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
@@ -1110,8 +1479,6 @@ def phase_profile(torch):
     the served shapes (a CFG forward, the decode, the text encode, and the
     parts of one refine step), then the device kernels of two CFG forwards
     under torch.profiler, by class and by name."""
-    from torch.profiler import ProfilerActivity, profile
-
     from videomv_tpu_torch.ops import gaussian_splat as tgs
     from videomv_tpu_torch.ops import splat
     from videomv_tpu_torch.ops.flash_attention import attention_reference
@@ -1197,13 +1564,22 @@ def phase_profile(torch):
             f"{parts['LGM big, 4 x 256²']:.2f} ms, peak {attn_gib:.2f} GiB above the resident")
         del q, k, v
 
-        n_fwd = 2
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_fwd):
-                forward()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    _profile_forward(torch, forward, "CFG forward", "profile_cfg_forward.json")
+
+
+def _profile_forward(torch, forward, what, trace_name, n_fwd=2):
+    """The device kernels of ``n_fwd`` calls of ``forward`` under
+    torch.profiler, by class and by name; the trace goes to
+    workspace/profile/. Returns ms of kernels per call by class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_fwd):
+            forward()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1211,13 +1587,13 @@ def phase_profile(torch):
     busy = sum(kernels.values())
     if busy == 0:
         say("profile", "torch.profiler recorded no device time: breakdown not measured")
-        return
+        return {}
     classes = {}
     for name, ms in kernels.items():
         low = name.lower()
         cls = next((c for c, keys in _KERNEL_CLASSES if any(k in low for k in keys)), "other")
         classes[cls] = classes.get(cls, 0.0) + ms
-    say("profile", f"torch.profiler, {n_fwd} CFG forwards: wall {wall_ms / n_fwd:.2f} ms, "
+    say("profile", f"torch.profiler, {n_fwd} x {what}: wall {wall_ms / n_fwd:.2f} ms, "
         f"kernels {busy / n_fwd:.2f} ms per forward, device busy {100 * busy / wall_ms:.1f}%")
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:24s} {ms / n_fwd:9.3f} ms/forward {100 * ms / busy:5.1f}%", flush=True)
@@ -1225,8 +1601,8 @@ def phase_profile(torch):
         print(f"  {ms / n_fwd:9.3f} ms/forward  {name[:110]}", flush=True)
     out_dir = os.path.join(ROOT, "workspace", "profile")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "profile_cfg_forward.json"))
-
+    prof.export_chrome_trace(os.path.join(out_dir, trace_name))
+    return {cls: ms / n_fwd for cls, ms in classes.items()}
 
 
 class _TwinSplat:
@@ -1380,7 +1756,7 @@ def phase_train(torch):
     if counts != want:
         fail("train", f"expected launches {want} over {TRAIN_STEPS} steps, got {counts}")
     want = {"flash_attention": {k: v * TRAIN_STEPS for k, v in TRAIN_ATTN_SHAPES.items()},
-            "geglu_ffn": {}}
+            "geglu_ffn": {}, "fused_spatial": {}}
     if shapes != want:
         fail("train", f"expected launches by shape {want}, got {shapes}")
     if len(vals) != TRAIN_STEPS or not all(x == x and abs(x) < 1e30 for row in vals for x in row):

@@ -11,9 +11,18 @@ import torch
 from torch_port_helpers import flatten_tree, seeded_like, set_torch_threads
 from videomv_tpu.models.autoencoder import AutoencoderKL as JVAE
 from videomv_tpu.models.clip import CLIPTextTower as JCLIP
+from videomv_tpu.models.clip import CLIPVisionTower as JVision
+from videomv_tpu.models.unet_i2v import UNetSD_I2VGen as JUNetI2V
 from videomv_tpu.models.unet_t2v import UNetSD_T2VBase as JUNet
 from videomv_tpu.training.checkpoints import convert_open_clip, convert_unet, convert_vae
-from videomv_tpu_torch.models import AutoencoderKL, CLIPTextTower, UNetSD_T2VBase
+from videomv_tpu_torch.models import (
+    AutoencoderKL,
+    CLIPTextTower,
+    CLIPVisionTower,
+    OpenCLIPTextVisual,
+    UNetSD_I2VGen,
+    UNetSD_T2VBase,
+)
 from videomv_tpu_torch.training.checkpoints import state_dict_from_flax
 
 set_torch_threads()
@@ -39,8 +48,36 @@ def _clip_shapes():
     return jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 77), jnp.int32)))
 
 
+def _unet_i2v_shapes():
+    x, t = jnp.zeros((1, 4, 2, 8, 8)), jnp.zeros((1,), jnp.int32)
+    jm = JUNetI2V(**UNET)
+    return jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), x, t, y=jnp.zeros((1, 5, 32)), camera_data=jnp.zeros((1, 2, 16)),
+        local_image=jnp.zeros((1, 4, 1, 8, 8)), image=jnp.zeros((1, 32))))
+
+
+VISION = dict(image_size=28, patch_size=14, width=64, heads=2, layers=2, embed_dim=64)
+
+
+def _joint_clip_shapes():
+    """The joint tree as ``OpenCLIPTextVisual`` lays it out: ``text`` and
+    ``visual`` subtrees (small towers)."""
+    text = _clip_shapes()["params"]
+    jv = JVision(**VISION)
+    visual = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0),
+                                            jnp.zeros((1, 3, 28, 28))))["params"]
+    return {"params": {"text": text, "visual": visual}}
+
+
+def _joint_clip():
+    return OpenCLIPTextVisual(visual=CLIPVisionTower(**VISION), width=64, heads=2, layers=3,
+                              embed_dim=64)
+
+
 CASES = {
     "unet": (_unet_shapes, lambda: UNetSD_T2VBase(**UNET), convert_unet, lambda p: p),
+    "unet_i2v": (_unet_i2v_shapes, lambda: UNetSD_I2VGen(**UNET), convert_unet, lambda p: p),
+    "clip_joint": (_joint_clip_shapes, _joint_clip, convert_open_clip, lambda p: p),
     "vae": (_vae_shapes, lambda: AutoencoderKL(ch=32, ch_mult=(1, 2), num_res_blocks=1),
             convert_vae, lambda p: p),
     # convert_open_clip targets the joint tower, text under 'text'
@@ -90,3 +127,31 @@ def test_released_checkpoint_keys_load_directly():
     assert not report["missing"] and not report["unexpected"] and not report["mismatched"]
     for k, v in dst.state_dict().items():
         assert torch.equal(v, src.state_dict()[k]), k
+
+
+def test_joint_clip_keeps_released_key_names():
+    """The joint module's keys are the released file's: the text tower at the
+    top level, the visual tower under ``visual.``; the text-only rename drops
+    the visual tower, the joint rename keeps it."""
+    from videomv_tpu_torch.training.checkpoints import (
+        load_matched, rename_clip_joint_key, rename_clip_key)
+
+    joint = _joint_clip()
+    keys = set(joint.state_dict())
+    for k in ("token_embedding.weight", "positional_embedding", "text_projection",
+              "transformer.resblocks.0.attn.in_proj_weight", "ln_final.bias",
+              "visual.conv1.weight", "visual.class_embedding", "visual.positional_embedding",
+              "visual.ln_pre.weight", "visual.transformer.resblocks.1.mlp.c_proj.bias",
+              "visual.ln_post.bias", "visual.proj"):
+        assert k in keys, k
+    assert "visual.conv1.bias" not in keys
+    released = {k: torch.full_like(v, 0.5) for k, v in joint.state_dict().items()}
+    released["logit_scale"] = torch.tensor(4.6)
+    assert rename_clip_key("visual.proj") is None and rename_clip_key("logit_scale") is None
+    assert rename_clip_joint_key("visual.proj") == "visual.proj"
+    report = load_matched(joint, released, rename_clip_joint_key)
+    assert not (report["missing"] or report["unexpected"] or report["mismatched"])
+    assert float(joint.visual.proj.detach().mean()) == 0.5
+    text = CLIPTextTower(width=64, heads=2, layers=3, embed_dim=64)
+    report = load_matched(text, released, rename_clip_key)
+    assert not (report["missing"] or report["unexpected"] or report["mismatched"])

@@ -75,6 +75,32 @@ def test_ddim_cfg_loop_matches_jax(mean_type, steps):
     assert rel_err(got.numpy(), np.asarray(want)) <= SAMPLE_REL_TOL
 
 
+# the I2V schedule (configs/i2vgen_xl_train.yaml): cosine betas rescaled to a
+# zero terminal SNR, v-prediction
+COSINE_ZTS_V = dict(schedule="cosine",
+                    schedule_param=dict(num_timesteps=1000, cosine_s=0.008,
+                                        zero_terminal_snr=True),
+                    mean_type="v", var_type="fixed_small")
+
+
+@pytest.mark.parametrize("steps,first_t", [(10, 901), (50, 981)])
+def test_ddim_cfg_loop_matches_jax_at_the_i2v_schedule(steps, first_t):
+    """alphas_cumprod is 0 at t = 999 under the zero terminal SNR; the DDIM
+    sequences start below it, so nothing divides by it."""
+    seq = tsamplers.ddim_timestep_seq(1000, steps)
+    assert int(seq.max()) == first_t
+    td = TDiffusion(**COSINE_ZTS_V)
+    t999 = torch.tensor([999])
+    assert float(td._bcast("alphas_cumprod", t999, torch.zeros(1, 1))) == 0.0
+    noise = np.random.default_rng(steps).standard_normal((1, 4, 3, 4, 4)).astype(np.float32)
+    want = jax.jit(lambda n: jsamplers.ddim_sample_loop(
+        JDiffusion(**COSINE_ZTS_V), _stub_jax, n, ddim_timesteps=steps, guide_scale=6.0))(noise)
+    got = tsamplers.ddim_sample_loop(td, _stub_torch, torch.from_numpy(noise),
+                                     ddim_timesteps=steps, guide_scale=6.0)
+    assert np.isfinite(got.numpy()).all()
+    assert rel_err(got.numpy(), np.asarray(want)) <= SAMPLE_REL_TOL
+
+
 def test_unported_mean_type_raises():
     with pytest.raises(NotImplementedError):
         TDiffusion(**dict(LINEAR_SD, mean_type="x_{t-1}"))

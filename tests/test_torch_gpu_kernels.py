@@ -3,8 +3,10 @@
 a tile multiple, the widest and narrowest C; the splat composite with both
 payloads and an overflowing pair capacity; its backward kernel against its
 twin and against autograd of the forward twin), the wrappers' input checks,
-the backward of the attention and FFN wrappers, and the module dispatch. Each test needs a CUDA device and skips without
-one. On the card, from the repository root (the test tree's conftest
+the backward of the attention and FFN wrappers, the module dispatch, and the
+fused spatial-transformer block (other widths and contexts than the served
+ones, its input checks, its backward, its dispatch under the environment
+switch). Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
 
     python -m pytest tests/test_torch_gpu_kernels.py -m gpu --noconftest -q
@@ -312,15 +314,136 @@ def test_module_dispatch_reaches_the_kernels(cuda):
     # attn1 (self, 1024 tokens) and the FFN (8192 tokens) take the kernels;
     # attn2 (77 context tokens) stays plain
     assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 1, "splat_composite": 0,
-                                   "splat_composite_bwd": 0}
+                                   "splat_composite_bwd": 0, "fused_spatial": 0}
     ops.reset_launch_counts()
     with torch.no_grad():
         block.train()(x, ctx)  # training mode: the FFN gate is closed
     assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0,
-                                   "splat_composite_bwd": 0}
+                                   "splat_composite_bwd": 0, "fused_spatial": 0}
     # under grad the attention goes through its autograd.Function
     ops.reset_launch_counts()
     block(x.clone().requires_grad_(), ctx).float().sum().backward()
     assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0,
-                                   "splat_composite_bwd": 0}
+                                   "splat_composite_bwd": 0, "fused_spatial": 0}
     assert all(p.grad is not None for p in block.parameters())
+
+
+def _spatial_block(dev, c, heads, cc, seed=9):
+    from videomv_tpu_torch.models.blocks import SpatialTransformer
+    from videomv_tpu_torch.ops.fused_spatial import spatial_params
+    from videomv_tpu_torch.training.checkpoints import init_weights
+
+    mod = init_weights(SpatialTransformer(c, heads, 64, depth=1, context_dim=cc), seed=seed,
+                       zero_init=False)
+    mod = mod.to(device=dev, dtype=torch.bfloat16).eval().requires_grad_(False)
+    return mod, spatial_params(mod, vector_dtype=torch.float32)
+
+
+# (rows, tokens, C, heads, context tokens, context width): the CPU tests'
+# size, one 64-token tile, the widest C, a context of one tile exactly and of
+# a single token, an odd head count
+@pytest.mark.parametrize("r,s,c,heads,kv_len,cc", [
+    (2, 512, 128, 2, 7, 96), (3, 64, 64, 1, 64, 32), (1, 1024, 384, 6, 145, 1024),
+    (2, 576, 320, 5, 1, 1536), (2, 1024, 192, 3, 129, 64)])
+def test_fused_spatial_matches_its_fp32_twin(cuda, r, s, c, heads, kv_len, cc):
+    """Error against the fp32 twin within twice the bf16 module path's."""
+    from videomv_tpu_torch.ops.fused_spatial import (
+        fused_spatial_transformer, spatial_block_reference)
+
+    mod, params = _spatial_block(cuda, c, heads, cc)
+    gen = torch.Generator(device=cuda).manual_seed(r + s + c)
+    x = _randn(gen, cuda, r, s, c)
+    ctx = _randn(gen, cuda, r, kv_len, cc)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        kern = fused_spatial_transformer(x, ctx, params, heads)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_spatial"] == 1
+        assert ops.launch_counts_by_shape()["fused_spatial"] == {(r, s, c, kv_len): 1}
+        twin = spatial_block_reference(x, ctx, params, heads).float()
+        # the module composition on the same tokens as a [r, c, s, 1] image
+        module = mod(x.transpose(1, 2).reshape(r, c, s, 1).contiguous(), ctx)
+        module = module.reshape(r, c, s).transpose(1, 2)
+    assert ops.launch_counts()["fused_spatial"] == 1  # no flag: the module path
+    k_err = (kern.float() - twin).abs().max().item()
+    m_err = (module.float() - twin).abs().max().item()
+    assert torch.isfinite(kern.float()).all()
+    assert k_err <= 2 * m_err + EPS, (k_err, m_err)
+
+
+def test_fused_spatial_rejects_what_it_cannot_take(cuda):
+    from videomv_tpu_torch.ops.fused_spatial import fused_spatial_transformer
+
+    _, params = _spatial_block(cuda, 128, 2, 96)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x, ctx = _randn(gen, cuda, 2, 128, 128), _randn(gen, cuda, 2, 7, 96)
+    fused_spatial_transformer(x, ctx, params, 2)  # fine
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x.float(), ctx, params, 2)  # fp32 x
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x[:, :100].contiguous(), ctx, params, 2)  # S % 64 != 0
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x, ctx, params, 4)  # C != heads·64
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x.transpose(0, 1).contiguous().transpose(0, 1), ctx, params, 2)
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x, ctx[:1], params, 2)  # rows disagree
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x, ctx, dict(params, bin=params["bin"].bfloat16()), 2)
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x, ctx, dict(params, wk2=params["wk1"]), 2)  # [C, Cc] wanted
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x, ctx, {k: v for k, v in params.items() if k != "b2"}, 2)
+    with pytest.raises(ValueError):
+        fused_spatial_transformer(x, ctx.cpu(), params, 2)  # another device
+
+
+def test_fused_spatial_backward_is_the_twins(cuda):
+    from videomv_tpu_torch.ops.fused_spatial import (
+        fused_spatial_transformer, spatial_block_reference)
+
+    _, params = _spatial_block(cuda, 128, 2, 96)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(gen, cuda, 2, 256, 128).requires_grad_()
+    ctx = _randn(gen, cuda, 2, 7, 96).requires_grad_()
+    pg = {k: v.clone().requires_grad_() for k, v in params.items()}
+    go = _randn(gen, cuda, 2, 256, 128)
+    ops.reset_launch_counts()
+    out = fused_spatial_transformer(x, ctx, pg, 2)
+    assert ops.launch_counts()["fused_spatial"] == 1 and out.requires_grad
+    got = torch.autograd.grad(out, [x, ctx, *pg.values()], go)
+    assert ops.launch_counts()["fused_spatial"] == 1  # the backward launches nothing
+    want = torch.autograd.grad(spatial_block_reference(x, ctx, pg, 2), [x, ctx, *pg.values()], go)
+    assert _rel_max(got, want) <= 1e-3
+
+
+def test_spatial_transformer_dispatch_follows_the_flag(cuda, monkeypatch):
+    """Flag off: kernels 1 and 2; flag on: kernel 5 alone, in eval mode, at
+    the eligible stage only."""
+    from videomv_tpu_torch.ops.fused_spatial import ENV_FLAG
+
+    mod, _ = _spatial_block(cuda, 320, 5, 1024)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _randn(gen, cuda, 4, 320, 32, 32)
+    ctx = _randn(gen, cuda, 4, 145, 1024)
+    zero = {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0, "splat_composite_bwd": 0,
+            "fused_spatial": 0}
+    monkeypatch.delenv(ENV_FLAG, raising=False)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        off = mod(x, ctx)
+        assert ops.launch_counts() == dict(zero, flash_attention=1, geglu_ffn=1)
+        monkeypatch.setenv(ENV_FLAG, "1")
+        ops.reset_launch_counts()
+        on = mod(x, ctx)
+        assert ops.launch_counts() == dict(zero, fused_spatial=1)
+        assert on.shape == off.shape and on.dtype == torch.bfloat16
+        # both are bf16 roundings of one function
+        assert (on.float() - off.float()).abs().max().item() <= 0.25
+        ops.reset_launch_counts()
+        mod(x[:, :, :16, :16].contiguous(), ctx)  # 256 tokens: not eligible
+        # (4 x 256 tokens are also below the FFN kernel's gate)
+        assert ops.launch_counts() == dict(zero, flash_attention=1)
+        ops.reset_launch_counts()
+        mod.train()(x, ctx)  # training mode: the module path, the FFN gate closed
+        assert ops.launch_counts() == dict(zero, flash_attention=1)

@@ -54,17 +54,21 @@ def test_attention_wrapper_on_cpu_runs_the_twin():
     np.testing.assert_array_equal(dot_product_attention(q, k, v).numpy(),
                                   attention_reference(q, k, v).numpy())
     assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
-                                   "splat_composite_bwd": 0}
-    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {}}
+                                   "splat_composite_bwd": 0, "fused_spatial": 0}
+    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {},
+                                            "fused_spatial": {}}
 
 
 def test_launch_counts_by_shape_reset_with_the_totals():
     ops.flash_attention.LAUNCHES_BY_SHAPE[(1, 256, 2, 64)] = 3
     ops.fused_ffn.LAUNCHES_BY_SHAPE[(4096, 320, 1280)] = 2
+    ops.fused_spatial.LAUNCHES_BY_SHAPE[(48, 1024, 320, 145)] = 5
     assert ops.launch_counts_by_shape() == {"flash_attention": {(1, 256, 2, 64): 3},
-                                            "geglu_ffn": {(4096, 320, 1280): 2}}
+                                            "geglu_ffn": {(4096, 320, 1280): 2},
+                                            "fused_spatial": {(48, 1024, 320, 145): 5}}
     ops.reset_launch_counts()
-    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {}}
+    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {},
+                                            "fused_spatial": {}}
 
 
 def test_attention_mask_and_bias_match_jax():

@@ -76,6 +76,66 @@ def test_clip_text_tower_matches_jax():
     assert rel_err(pooled.numpy(), np.asarray(want_pooled)) <= REL_TOL
 
 
+SMALL_VISION = dict(image_size=28, patch_size=14, width=64, heads=2, layers=3, embed_dim=48)
+
+
+def test_clip_vision_tower_matches_jax():
+    from videomv_tpu.models.clip import CLIPVisionTower as JVision
+    from videomv_tpu_torch.models import CLIPVisionTower
+
+    jm = JVision(**SMALL_VISION)
+    x = np.random.default_rng(4).standard_normal((2, 3, 28, 28)).astype(np.float32)
+    params = seeded_like(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x))),
+                         seed=14)
+    want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    tm = CLIPVisionTower(**SMALL_VISION)
+    tm.load_state_dict(state_dict_from_flax(flatten_tree(params["params"]), tm))
+    assert tm.positional_embedding.shape == (5, 64) and tm.conv1.bias is None
+    with torch.no_grad():
+        got = tm.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 48)
+    assert rel_err(got, want) <= 1e-4
+
+
+def test_joint_clip_matches_jax_and_shares_the_text_tower():
+    """``OpenCLIPTextVisual``: (image_emb, pooled, seq) as the JAX joint
+    module's; ``encode_text`` is the text tower alone."""
+    import flax.linen as nn
+
+    from videomv_tpu.models.clip import CLIPVisionTower as JVision
+    from videomv_tpu_torch.models import CLIPVisionTower, OpenCLIPTextVisual
+    from videomv_tpu_torch.models.clip import VIT_MEAN, VIT_STD
+    from videomv_tpu.models import clip as jclip
+
+    class JJoint(nn.Module):  # the JAX joint module with small towers
+        def setup(self):
+            self.text = JCLIP(**SMALL_CLIP)
+            self.visual = JVision(**SMALL_VISION)
+
+        def __call__(self, tokens, images):
+            pooled, seq = self.text(tokens)
+            return self.visual(images), pooled, seq
+
+    toks = tokenizer.tokenize(["", "a chair"])
+    x = np.random.default_rng(5).standard_normal((2, 3, 28, 28)).astype(np.float32)
+    jm = JJoint()
+    params = seeded_like(jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(toks), jnp.asarray(x))), seed=15)
+    want = jax.jit(jm.apply)(params, jnp.asarray(toks), jnp.asarray(x))
+    tm = OpenCLIPTextVisual(visual=CLIPVisionTower(**SMALL_VISION), **SMALL_CLIP)
+    tm.load_state_dict(state_dict_from_flax(flatten_tree(params["params"]), tm))
+    with torch.no_grad():
+        got = tm.eval()(torch.from_numpy(toks).long(), torch.from_numpy(x))
+        pooled, seq = tm.encode_text(torch.from_numpy(toks).long())
+        none = tm(torch.from_numpy(toks).long())
+    for g, w in zip(got, want):
+        assert rel_err(g.numpy(), np.asarray(w)) <= 1e-4
+    assert torch.equal(seq, got[2]) and torch.equal(pooled, got[1]) and none[0] is None
+    assert torch.equal(tm.encode_image(torch.from_numpy(x)), got[0])
+    np.testing.assert_array_equal(VIT_MEAN, jclip.VIT_MEAN)
+    np.testing.assert_array_equal(VIT_STD, jclip.VIT_STD)
+
+
 def test_tokenizer_copy_equals_original():
     texts = ["a wooden chair, 3d asset", "An astronaut riding a horse!", "",
              "word " * 100, "ünïcode &amp; html"]

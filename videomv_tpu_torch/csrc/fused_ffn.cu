@@ -28,32 +28,28 @@
 //   * then each warp owns C/64 column tiles of the accumulator and adds
 //     g·W2[chunk] into them (fp32, one owner per element, so no atomics);
 //   * at the end, acc + b2 is rounded to bf16 and written out.
+// The chunk loop is geglu_ffn_tile of ffn_tile.cuh, shared with the fused
+// spatial-transformer kernel.
 // Rows beyond T in the last tile are zero-filled and never stored.
 // Requirements (checked by the Python wrapper): bf16 x/W1/W2, fp32 biases,
 // contiguous; W1 [2I, C] and W2 [C, I] in nn.Linear layout; C % 16 == 0,
 // C <= 1024, I % 64 == 0.
 
-#include <math.h>
-
+#include "ffn_tile.cuh"
 #include "mma_utils.cuh"
 
 namespace vmv {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;         // inner columns per loop step (8 per warp)
-constexpr int kLdG = kChunk + 8;   // padded row of the g tile, in elements
+constexpr int kThreads = kFfnThreads;
+constexpr int kChunk = kFfnChunk;
+constexpr int kLdG = kFfnLdG;
 
 __host__ __device__ constexpr int ffn_ld(int c) { return c + 8; }
 
 __host__ size_t ffn_smem_bytes(int bm, int c) {
   return size_t(bm) * ffn_ld(c) * (sizeof(float) + sizeof(bf16)) +
          size_t(bm) * kLdG * sizeof(bf16);
-}
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x / 1.4142135623730951f));
 }
 
 template <int BM>
@@ -69,10 +65,6 @@ geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   bf16* sG = sX + BM * ld;                                   // [BM][kLdG]
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int q2 = (lane & 3) * 2;
   const int t0 = blockIdx.x * BM;
 
   // x tile (zero rows past T) and a zeroed accumulator
@@ -87,76 +79,7 @@ geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   for (int i = tid; i < BM * ld; i += kThreads) sAcc[i] = 0.f;
   __syncthreads();
 
-  for (int j0 = 0; j0 < I; j0 += kChunk) {
-    // ---- lin / gate for inner columns j0 + 8·warp + [0, 8)
-    float lin[MT][4], gate[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) lin[m][e] = gate[m][e] = 0.f;
-    }
-    const bf16* wl = w1 + int64_t(j0 + 8 * warp + g) * C + q2;  // B fragment rows
-    const bf16* wg = wl + int64_t(I) * C;
-#pragma unroll 2
-    for (int kk = 0; kk < C; kk += 16) {
-      const uint32_t bl0 = ldg_u32(wl + kk), bl1 = ldg_u32(wl + kk + 8);
-      const uint32_t bg0 = ldg_u32(wg + kk), bg1 = ldg_u32(wg + kk + 8);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        uint32_t a[4];
-        ldmatrix_x4(a, sX + (m * 16 + (lane & 15)) * ld + kk + (lane >> 4) * 8);
-        mma_bf16_16816(lin[m], a, bl0, bl1);
-        mma_bf16_16816(gate[m], a, bg0, bg1);
-      }
-    }
-    const int icol = j0 + 8 * warp + q2;
-    const float bl_0 = b1[icol], bl_1 = b1[icol + 1];
-    const float bg_0 = b1[I + icol], bg_1 = b1[I + icol + 1];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int r = m * 16 + g;
-      const float g0 = (lin[m][0] + bl_0) * gelu_erf(gate[m][0] + bg_0);
-      const float g1 = (lin[m][1] + bl_1) * gelu_erf(gate[m][1] + bg_1);
-      const float g2 = (lin[m][2] + bl_0) * gelu_erf(gate[m][2] + bg_0);
-      const float g3 = (lin[m][3] + bl_1) * gelu_erf(gate[m][3] + bg_1);
-      *reinterpret_cast<uint32_t*>(sG + r * kLdG + 8 * warp + q2) = pack_bf16x2(g0, g1);
-      *reinterpret_cast<uint32_t*>(sG + (r + 8) * kLdG + 8 * warp + q2) = pack_bf16x2(g2, g3);
-    }
-    __syncthreads();
-
-    // ---- acc[:, n-tile] += g · W2[n-tile, j0:j0+64]^T
-    uint32_t ga[MT][kChunk / 16][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        ldmatrix_x4(ga[m][kk], sG + (m * 16 + (lane & 15)) * kLdG + kk * 16 + (lane >> 4) * 8);
-      }
-    }
-    for (int nt = warp; nt < C / 8; nt += kWarps) {
-      const bf16* wp = w2 + int64_t(nt * 8 + g) * I + j0 + q2;
-      uint32_t wb[kChunk / 16][2];
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        wb[kk][0] = ldg_u32(wp + kk * 16);
-        wb[kk][1] = ldg_u32(wp + kk * 16 + 8);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float* ap = sAcc + (m * 16 + g) * ld + nt * 8 + q2;
-        const float2 lo = *reinterpret_cast<const float2*>(ap);
-        const float2 hi = *reinterpret_cast<const float2*>(ap + 8 * ld);
-        float acc[4] = {lo.x, lo.y, hi.x, hi.y};
-#pragma unroll
-        for (int kk = 0; kk < kChunk / 16; ++kk) {
-          mma_bf16_16816(acc, ga[m][kk], wb[kk][0], wb[kk][1]);
-        }
-        *reinterpret_cast<float2*>(ap) = make_float2(acc[0], acc[1]);
-        *reinterpret_cast<float2*>(ap + 8 * ld) = make_float2(acc[2], acc[3]);
-      }
-    }
-    __syncthreads();  // the g tile is rewritten by the next chunk
-  }
+  geglu_ffn_tile<MT>(sX, sAcc, sG, ld, w1, b1, w2, C, I);
 
   // ---- out = acc + b2, rounded to bf16
   const int half = C / 2;

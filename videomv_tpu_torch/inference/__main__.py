@@ -1,7 +1,8 @@
-"""CLI entry of the port: text → multiview generation on one device.
+"""CLI entry of the port: text or image → multiview generation on one device.
 
     python -m videomv_tpu_torch.inference --cfg configs/t2v_infer.yaml \
         [--debug] [--seed N] [--device cuda] [k v ...]
+    python -m videomv_tpu_torch.inference --cfg configs/i2vgen_xl_infer.yaml --debug
 
 Takes the arguments of the JAX package's ``inference.py`` plus ``--device``.
 It runs on the card: without a CUDA device it stops with an error, and
@@ -11,7 +12,11 @@ It runs on the card: without a CUDA device it stops with an error, and
 plain sample; with ``UNet.use_lgm_refine`` (as ``configs/t2v_infer.yaml``
 ships) also the Gaussian-splat refined sample (``_gs``), and with
 ``save_ply`` its Gaussians as a ``.ply``. Videos are mp4, PNG frames or
-``.npy``, whichever writer the machine has.
+``.npy``, whichever writer the machine has. With ``TASK_TYPE:
+inference_i2vgen_entrance`` the items of ``test_list_path`` are image paths
+(an empty list is an error), the outputs are named after the image file, and
+no ``.ply`` is written. ``VIDEOMV_ENABLE_FUSED_SPATIAL=1`` in the environment
+runs the UNet's 32² spatial transformers as one fused CUDA kernel each.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     from ..config import load_inference_config
     from ..utils.device import resolve_device
     from ..utils.video_io import save_multiview_video
+    from .i2v import I2VPipeline
     from .pipeline import T2VPipeline
 
     device = resolve_device(args.device)
@@ -54,13 +60,13 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     cfg.debug = args.debug
 
     task = cfg.get("TASK_TYPE", "inference_text2video_entrance")
-    if task == "inference_i2vgen_entrance":
-        raise NotImplementedError("I2V is not ported yet (a later slice of the port)")
-    if task != "inference_text2video_entrance":
+    is_i2v = task == "inference_i2vgen_entrance"
+    if task not in ("inference_text2video_entrance", "inference_i2vgen_entrance"):
         raise SystemExit(f"unknown TASK_TYPE {task}")
 
     logging.info("torch %s device %s", torch.__version__, device)
-    pipe = T2VPipeline(cfg, device=device, seed=int(cfg.get("seed", 0)))
+    pipe_cls = I2VPipeline if is_i2v else T2VPipeline
+    pipe = pipe_cls(cfg, device=device, seed=int(cfg.get("seed", 0)))
     pipe.init_params()
 
     items = []
@@ -68,10 +74,12 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     if lp and os.path.exists(lp):
         with open(lp) as f:
             items = [ln.strip() for ln in f if ln.strip() and not ln.startswith("#")]
-    if not items:
+    if not items and not is_i2v:
         items = ["a wooden chair"]
     if args.debug:
         items = items[:1]
+    if not items:
+        raise SystemExit(f"no inputs in {lp}")
 
     log_dir = cfg.get("log_dir", "workspace/visualization")
     os.makedirs(log_dir, exist_ok=True)
@@ -79,23 +87,30 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     rounds = 1 if args.debug else int(cfg.get("round", 1))
     steps = int(cfg.get("ddim_timesteps", 50))
     written = []
+
+    def run(item, seed, refine):
+        if is_i2v:
+            return pipe.generate_from_image(item, steps=steps, use_gs_refine=refine, seed=seed)
+        return pipe.generate(item, steps=steps, use_gs_refine=refine, seed=seed)
+
     for r in range(rounds):
         for idx, item in enumerate(items):
             seed = int(cfg.get("seed", 0)) + r
             logging.info("[%d/%d] sampling %r (seed %d)", idx, len(items), item, seed)
-            cap_name = re.sub(r"[^\w\s]", "", item).replace(" ", "_")[:60]
+            name = os.path.splitext(os.path.basename(item))[0] if is_i2v else item
+            cap_name = re.sub(r"[^\w\s]", "", name).replace(" ", "_")[:60]
             stem = os.path.join(log_dir, f"{idx:04d}_{cap_name}_{seed}")
             t0 = time.time()
-            out = pipe.generate(item, steps=steps, seed=seed)
-            written.append(save_multiview_video(stem + ".mp4", out["frames"], caption=item))
+            out = run(item, seed, refine=False)
+            written.append(save_multiview_video(stem + ".mp4", out["frames"], caption=name))
             logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
             if use_refine:
                 t0 = time.time()
-                out_gs = pipe.generate(item, steps=steps, use_gs_refine=True, seed=seed)
+                out_gs = run(item, seed, refine=True)
                 written.append(save_multiview_video(stem + "_gs.mp4", out_gs["frames"],
-                                                    caption=item))
+                                                    caption=name))
                 logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
-                if bool(cfg.get("save_ply", False)):
+                if bool(cfg.get("save_ply", False)) and not is_i2v:
                     pipe.export_ply(out_gs["frames"], stem + ".ply")
                     written.append(stem + ".ply")
                     logging.info("saved %s", written[-1])

@@ -85,6 +85,8 @@ class T2VPipeline:
     """Builds the models from a merged config and drives generation on
     ``device``."""
 
+    _clip_rename = staticmethod(rename_clip_key)  # the text tower's keys of a CLIP file
+
     def __init__(self, cfg: AttrDict, device, seed: int = 0):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -164,7 +166,7 @@ class T2VPipeline:
             jobs.append(("vae", ae.pretrained, rename_vae_key))
         emb = cfg.get("embedder", {})
         if emb.get("pretrained") and os.path.exists(emb.pretrained):
-            jobs.append(("clip", emb.pretrained, rename_clip_key))
+            jobs.append(("clip", emb.pretrained, self._clip_rename))
         lgm_path = cfg.get("lgm_pretrain")
         if lgm_path and os.path.exists(lgm_path) and self.lgm is not None:
             jobs.append(("lgm", lgm_path, rename_lgm_key))
@@ -184,7 +186,21 @@ class T2VPipeline:
                     "min_matched_fraction in the config to override.")
         self._negative_cache.clear()
 
+    def _check_params_dtype(self):
+        """``params_dtype`` (the JAX pipeline's storage switch): this
+        pipeline stores every weight in the sampling dtype already, so
+        ``bfloat16`` asks for what bf16 sampling does and is ignored, with a
+        warning, under fp32 sampling; anything else raises."""
+        pd = str(self.cfg.get("params_dtype", "")).lower()
+        if pd in ("", "none", "float32", "fp32", "f32"):
+            return
+        if pd not in ("bfloat16", "bf16"):
+            raise ValueError(f"params_dtype must be bfloat16 or float32, got {pd!r}")
+        if self.dtype != torch.bfloat16:
+            logger.warning("params_dtype bfloat16 ignored: sampling_dtype is fp32")
+
     def _finalize(self):
+        self._check_params_dtype()
         for m in self.models.values():
             if any(p.device.type == "meta" for p in m.parameters()):
                 continue  # not initialised or loaded (e.g. a test feeding y_words)
@@ -197,7 +213,7 @@ class T2VPipeline:
     def encode_text(self, prompts: Sequence[str]) -> torch.Tensor:
         """Prompts → y_words [B, 77, width] (penultimate-layer sequence)."""
         toks = torch.as_tensor(tokenize(list(prompts)), dtype=torch.long, device=self.device)
-        return self.clip(toks)[1]
+        return self.clip.encode_text(toks)[1]
 
     def _get_cameras(self, elevation: float, camera_distance: float):
         """The orbit's camera conditioning [1, F, 16] and its splat cameras:

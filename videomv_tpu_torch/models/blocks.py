@@ -28,6 +28,11 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..ops.fused_ffn import ffn_eligible, geglu_ffn
+from ..ops.fused_spatial import (
+    fused_spatial_transformer,
+    spatial_fused_eligible,
+    spatial_params,
+)
 
 __all__ = [
     "BasicTransformerBlock",
@@ -160,12 +165,19 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """Self+cross attention over the H·W tokens (util.py:311-373,
-    use_linear=True; GroupNorm eps 1e-6). [B·F, C, H, W] -> same."""
+    use_linear=True; GroupNorm eps 1e-6). [B·F, C, H, W] -> same.
+
+    In eval mode, with a context, depth 1 and d_head 64, the whole block runs
+    as one fused CUDA kernel where ``spatial_fused_eligible`` holds (opt-in
+    through ``VIDEOMV_ENABLE_FUSED_SPATIAL``; bf16 on a CUDA device, the 32²
+    / C = 320 stage). The kernel's layout is ``[R, S, C]``: the NCHW input is
+    permuted to tokens-last around the call."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
         inner = n_heads * d_head
+        self.n_heads, self.d_head, self.depth = n_heads, d_head, depth
         self.norm = nn.GroupNorm(32, in_channels, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
@@ -175,6 +187,14 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         bf, c, hh, ww = x.shape
+        if (not self.training and context is not None and self.depth == 1
+                and self.d_head == 64
+                and spatial_fused_eligible(hh * ww, c, self.n_heads * self.d_head, self.n_heads,
+                                           x.dtype, x.is_cuda)):
+            out = fused_spatial_transformer(
+                x.permute(0, 2, 3, 1).contiguous().view(bf, hh * ww, c), context.contiguous(),
+                spatial_params(self, vector_dtype=torch.float32), self.n_heads)
+            return out.reshape(bf, hh, ww, c).permute(0, 3, 1, 2)
         h = self.norm(x).permute(0, 2, 3, 1).reshape(bf, hh * ww, c)
         h = self.proj_in(h)
         for block in self.transformer_blocks:

@@ -1,9 +1,10 @@
-"""Attention, feed-forward and splat-composite ops, each a hand-written CUDA
-kernel beside its plain PyTorch twin (modules ``flash_attention``,
-``fused_ffn`` and ``splat``, the last with a forward and a backward
-kernel), and the Gaussian-splat geometry around them."""
+"""Attention, feed-forward, fused spatial-block and splat-composite ops, each
+a hand-written CUDA kernel beside its plain PyTorch twin (modules
+``flash_attention``, ``fused_ffn``, ``fused_spatial`` and ``splat``, the last
+with a forward and a backward kernel), and the Gaussian-splat geometry around
+them."""
 
-from . import flash_attention, fused_ffn, splat
+from . import flash_attention, fused_ffn, fused_spatial, splat
 from .attention import attention_eligible, dot_product_attention
 from .fused_ffn import ffn_eligible, geglu_ffn, geglu_ffn_reference
 
@@ -13,6 +14,7 @@ __all__ = [
     "ffn_eligible",
     "flash_attention",
     "fused_ffn",
+    "fused_spatial",
     "geglu_ffn",
     "geglu_ffn_reference",
     "launch_counts",
@@ -25,14 +27,17 @@ __all__ = [
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
     return {"flash_attention": flash_attention.LAUNCHES, "geglu_ffn": fused_ffn.LAUNCHES,
-            "splat_composite": splat.LAUNCHES, "splat_composite_bwd": splat.BWD_LAUNCHES}
+            "splat_composite": splat.LAUNCHES, "splat_composite_bwd": splat.BWD_LAUNCHES,
+            "fused_spatial": fused_spatial.LAUNCHES}
 
 
 def launch_counts_by_shape() -> dict:
-    """The attention and FFN kernels' launches since the last reset, split by
-    the shape of each launch: ``(B, S, H, D)`` and ``(T, C, I)``."""
+    """The attention, FFN and fused spatial-block kernels' launches since the
+    last reset, split by the shape of each launch: ``(B, S, H, D)``,
+    ``(T, C, I)`` and ``(R, S, C, L)``."""
     return {"flash_attention": dict(flash_attention.LAUNCHES_BY_SHAPE),
-            "geglu_ffn": dict(fused_ffn.LAUNCHES_BY_SHAPE)}
+            "geglu_ffn": dict(fused_ffn.LAUNCHES_BY_SHAPE),
+            "fused_spatial": dict(fused_spatial.LAUNCHES_BY_SHAPE)}
 
 
 def reset_launch_counts() -> None:
@@ -42,3 +47,5 @@ def reset_launch_counts() -> None:
     fused_ffn.LAUNCHES_BY_SHAPE.clear()
     splat.LAUNCHES = 0
     splat.BWD_LAUNCHES = 0
+    fused_spatial.LAUNCHES = 0
+    fused_spatial.LAUNCHES_BY_SHAPE.clear()

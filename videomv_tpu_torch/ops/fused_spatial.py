@@ -1,0 +1,251 @@
+"""Fused spatial-transformer block: the CUDA kernel ``csrc/fused_spatial.cu``
+and its plain PyTorch twin.
+
+Port of ``videomv_tpu/ops/fused_spatial.py``. ``fused_spatial_transformer(x,
+ctx, params, n_heads)`` runs one whole depth-1 ``SpatialTransformer``
+(GroupNorm 32 → proj_in → LN → self-attention → LN → cross-attention over
+``ctx`` → LN → GEGLU feed-forward → proj_out → + x) on ``x [R, S, C]`` (the JAX
+package's layout: rows of H·W tokens) and ``ctx [R, L, Cc]``. ``params`` is
+the block's tensors by the names of ``PARAM_NAMES`` in ``nn.Linear`` layout
+(``spatial_params(module)`` reads them off a ``SpatialTransformer``). On a
+CUDA tensor it launches the hand-written kernel (bf16 x, ctx and weights,
+fp32 norm scales and biases) or raises; on a CPU tensor it runs
+``spatial_block_reference``, the fp32 twin.
+
+The kernel is opt-in, as in the JAX package: ``spatial_fused_eligible`` is
+false unless ``VIDEOMV_ENABLE_FUSED_SPATIAL`` is set, and then holds for the
+UNet's 32² / C = 320 stage only (``C == heads·64 <= 384``, ``S % 512 == 0``,
+bf16 on a CUDA device). The JAX package's VMEM-sizing switches (rows per grid
+cell, bf16 residuals) have no counterpart: the kernel keeps fp32 residuals.
+
+``LAUNCHES`` counts wrapper calls that launched the kernel (one call runs its
+four ``__global__`` phases on one stream and counts once);
+``LAUNCHES_BY_SHAPE`` splits the count by ``(R, S, C, L)``.
+
+Under grad it is a ``torch.autograd.Function`` like the JAX package's
+``custom_vjp``: the forward is the kernel, the backward differentiates
+``spatial_block_reference`` on the saved inputs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = [
+    "LAUNCHES",
+    "LAUNCHES_BY_SHAPE",
+    "PARAM_NAMES",
+    "fused_spatial_transformer",
+    "spatial_block_reference",
+    "spatial_fused_eligible",
+    "spatial_params",
+]
+
+LAUNCHES = 0
+LAUNCHES_BY_SHAPE: dict = {}
+
+D_HEAD = 64
+GROUPS = 32
+ENV_FLAG = "VIDEOMV_ENABLE_FUSED_SPATIAL"
+
+# the block's tensors in the kernel's argument order: matrices in nn.Linear
+# layout [out, in]; ``w1`` is the GEGLU projection [2·inner_ff, C] (lin rows
+# first, gate rows second)
+PARAM_NAMES = (
+    "gn_s", "gn_b", "win", "bin",
+    "ln1_s", "ln1_b", "wq1", "wk1", "wv1", "wo1", "bo1",
+    "ln2_s", "ln2_b", "wq2", "wk2", "wv2", "wo2", "bo2",
+    "ln3_s", "ln3_b", "w1", "b1", "w2", "b2",
+    "wpo", "bpo",
+)
+_MATRICES = frozenset(n for n in PARAM_NAMES if n.startswith("w"))
+
+
+def spatial_params(module, vector_dtype: Optional[torch.dtype] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The tensors of a depth-1 ``SpatialTransformer`` module by the names of
+    ``PARAM_NAMES``. ``vector_dtype`` casts the norm scales and the biases
+    (the kernel takes them in fp32 beside bf16 matrices)."""
+    tb = module.transformer_blocks[0]
+    p = {
+        "gn_s": module.norm.weight, "gn_b": module.norm.bias,
+        "win": module.proj_in.weight, "bin": module.proj_in.bias,
+        "w1": tb.ff.net[0].proj.weight, "b1": tb.ff.net[0].proj.bias,
+        "w2": tb.ff.net[2].weight, "b2": tb.ff.net[2].bias,
+        "wpo": module.proj_out.weight, "bpo": module.proj_out.bias,
+    }
+    for i, (norm, attn) in enumerate(((tb.norm1, tb.attn1), (tb.norm2, tb.attn2),
+                                      (tb.norm3, None)), start=1):
+        p[f"ln{i}_s"], p[f"ln{i}_b"] = norm.weight, norm.bias
+        if attn is not None:
+            p[f"wq{i}"], p[f"wk{i}"], p[f"wv{i}"] = (attn.to_q.weight, attn.to_k.weight,
+                                                      attn.to_v.weight)
+            p[f"wo{i}"], p[f"bo{i}"] = attn.to_out[0].weight, attn.to_out[0].bias
+    if vector_dtype is not None:
+        p = {k: (v if k in _MATRICES else v.to(vector_dtype)) for k, v in p.items()}
+    return p
+
+
+def spatial_block_reference(x: torch.Tensor, ctx: torch.Tensor, params: Dict[str, torch.Tensor],
+                            n_heads: int) -> torch.Tensor:
+    """Plain twin: the fp32 mirror of the module composition (the JAX
+    ``spatial_block_reference``): GroupNorm(32, eps 1e-6) over tokens × C/32
+    channels, LayerNorm eps 1e-5, head_dim 64, exact-erf GEGLU, all in fp32
+    whatever the inputs' dtype, ``x + y`` cast to ``x.dtype``."""
+    p = {k: v.float() for k, v in params.items()}
+    r, s, c = x.shape
+    xf = x.float()
+
+    def ln(v, i):
+        return F.layer_norm(v, (v.shape[-1],), p[f"ln{i}_s"], p[f"ln{i}_b"], eps=1e-5)
+
+    def attn(q_in, kv_in, i):
+        q = (q_in @ p[f"wq{i}"].t()).reshape(r, -1, n_heads, D_HEAD).transpose(1, 2)
+        k = (kv_in @ p[f"wk{i}"].t()).reshape(r, -1, n_heads, D_HEAD).transpose(1, 2)
+        v = (kv_in @ p[f"wv{i}"].t()).reshape(r, -1, n_heads, D_HEAD).transpose(1, 2)
+        probs = torch.softmax((q @ k.transpose(-1, -2)) * D_HEAD ** -0.5, dim=-1)
+        o = (probs @ v).transpose(1, 2).reshape(r, -1, n_heads * D_HEAD)
+        return o @ p[f"wo{i}"].t() + p[f"bo{i}"]
+
+    g = xf.reshape(r, s, GROUPS, c // GROUPS)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = g.var(dim=(1, 3), keepdim=True, unbiased=False)
+    h = ((g - mean) * torch.rsqrt(var + 1e-6)).reshape(r, s, c) * p["gn_s"] + p["gn_b"]
+    r0 = h @ p["win"].t() + p["bin"]
+    t1 = ln(r0, 1)
+    r1 = r0 + attn(t1, t1, 1)
+    r2 = r1 + attn(ln(r1, 2), ctx.float(), 2)
+    lin, gate = (ln(r2, 3) @ p["w1"].t() + p["b1"]).chunk(2, dim=-1)
+    r3 = r2 + ((lin * F.gelu(gate)) @ p["w2"].t() + p["b2"])
+    y = r3 @ p["wpo"].t() + p["bpo"]
+    return (xf + y).to(x.dtype)
+
+
+def spatial_fused_eligible(s: int, c: int, inner: int, n_heads: int, dtype: torch.dtype,
+                           is_cuda: bool) -> bool:
+    """The kernel gate of the JAX package (opt-in through
+    ``VIDEOMV_ENABLE_FUSED_SPATIAL``; ``inner == C == heads·64 <= 384``,
+    ``C % 32 == 0``, ``S % 512 == 0``) with its TPU-backend test replaced by
+    ``is_cuda`` and bf16."""
+    if not os.environ.get(ENV_FLAG):
+        return False
+    if not is_cuda or dtype != torch.bfloat16:
+        return False
+    return inner == c and c == n_heads * D_HEAD and c <= 384 and c % 32 == 0 and s % 512 == 0
+
+
+def _check_cuda_inputs(x, ctx, params, n_heads) -> None:
+    what = "fused_spatial_transformer"
+    dev = x.device
+    tensors = [("x", x, torch.bfloat16), ("ctx", ctx, torch.bfloat16)] + [
+        (n, params[n], torch.bfloat16 if n in _MATRICES else torch.float32) for n in PARAM_NAMES]
+    for name, t, dt in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: {name} must be on {dev}")
+        if t.dtype != dt:
+            raise ValueError(f"{what}: {name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if x.dim() != 3 or ctx.dim() != 3 or ctx.shape[0] != x.shape[0]:
+        raise ValueError(f"{what}: x must be [R, S, C] and ctx [R, L, Cc], got "
+                         f"{tuple(x.shape)} and {tuple(ctx.shape)}")
+    r, s, c = x.shape
+    cc = ctx.shape[2]
+    if c != n_heads * D_HEAD or c > 384 or s % 64 != 0 or ctx.shape[1] < 1:
+        raise ValueError(f"{what}: the kernel takes C == heads·64 <= 384 and S % 64 == 0; got "
+                         f"C={c}, heads={n_heads}, S={s}")
+    if cc % 16 != 0 or cc > 1536:
+        raise ValueError(f"{what}: the kernel takes Cc % 16 == 0, Cc <= 1536; got Cc={cc}")
+    iff = params["w2"].shape[1] if params["w2"].dim() == 2 else -1
+    if iff < 64 or iff % 64 != 0:
+        raise ValueError(f"{what}: the feed-forward's inner width must be a multiple of 64, "
+                         f"got {iff}")
+    shapes = {"gn_s": (c,), "gn_b": (c,), "win": (c, c), "bin": (c,), "wpo": (c, c),
+              "bpo": (c,), "w1": (2 * iff, c), "b1": (2 * iff,), "w2": (c, iff), "b2": (c,),
+              "wk2": (c, cc), "wv2": (c, cc)}
+    for i in (1, 2, 3):
+        shapes[f"ln{i}_s"] = shapes[f"ln{i}_b"] = (c,)
+    for n in ("wq1", "wk1", "wv1", "wo1", "wq2", "wo2"):
+        shapes[n] = (c, c)
+    shapes["bo1"] = shapes["bo2"] = (c,)
+    bad = {n: tuple(params[n].shape) for n, want in shapes.items()
+           if tuple(params[n].shape) != want}
+    if bad:
+        raise ValueError(f"{what}: parameter shapes do not fit C={c}, Cc={cc}, inner={iff}: {bad}")
+
+
+def _check_names(params) -> None:
+    if set(params) != set(PARAM_NAMES):
+        raise ValueError(
+            f"fused_spatial_transformer: params must hold exactly {PARAM_NAMES}; "
+            f"missing {sorted(set(PARAM_NAMES) - set(params))}, "
+            f"unexpected {sorted(set(params) - set(PARAM_NAMES))}")
+
+
+def _launch(x, ctx, params, n_heads):
+    global LAUNCHES
+    _check_names(params)
+    _check_cuda_inputs(x, ctx, params, n_heads)
+    r, s, c = x.shape
+    kv_len, cc = ctx.shape[1], ctx.shape[2]
+    iff = params["w2"].shape[1]
+    dev = x.device
+    out = torch.empty_like(x)
+    # scratch of the phase split: GroupNorm moments, self-attention K/V of
+    # every row, cross-attention K/V of every context row
+    stats = torch.empty((r, GROUPS, 2), dtype=torch.float32, device=dev)
+    k1, v1 = torch.empty_like(x), torch.empty_like(x)
+    k2 = torch.empty((r * kv_len, c), dtype=torch.bfloat16, device=dev)
+    v2 = torch.empty_like(k2)
+    tensors = [x, ctx, out, stats, k1, v1, k2, v2] + [params[n] for n in PARAM_NAMES]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    lib = _build.load_library()
+    err = lib.vmv_fused_spatial_fwd(ptrs, r, s, c, kv_len, cc, n_heads, iff,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "vmv_fused_spatial_fwd")
+    LAUNCHES += 1
+    key = (r, s, c, kv_len)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    return out
+
+
+class _FusedSpatial(torch.autograd.Function):
+    """Forward: the kernel; backward: autograd through the plain twin on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(fctx, n_heads, x, ctx, *tensors):
+        fctx.n_heads = n_heads
+        fctx.save_for_backward(x, ctx, *tensors)
+        return _launch(x, ctx, dict(zip(PARAM_NAMES, tensors)), n_heads)
+
+    @staticmethod
+    def backward(fctx, grad):
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in fctx.saved_tensors]
+            out = spatial_block_reference(args[0], args[1], dict(zip(PARAM_NAMES, args[2:])),
+                                          fctx.n_heads)
+        return (None, *torch.autograd.grad(out, args, grad.to(out.dtype), allow_unused=True))
+
+
+def fused_spatial_transformer(x: torch.Tensor, ctx: torch.Tensor,
+                              params: Dict[str, torch.Tensor], n_heads: int) -> torch.Tensor:
+    """x [R, S, C], ctx [R, L, Cc] → [R, S, C]: the CUDA kernel on a CUDA
+    tensor (differentiable: the backward recomputes through the plain twin),
+    the plain twin on a CPU tensor."""
+    if not x.is_cuda:
+        return spatial_block_reference(x, ctx, params, n_heads)
+    _check_names(params)
+    tensors = [params[n] for n in PARAM_NAMES]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, ctx, *tensors)):
+        return _FusedSpatial.apply(n_heads, x, ctx, *tensors)
+    return _launch(x, ctx, params, n_heads)

@@ -32,6 +32,7 @@ __all__ = [
     "init_weights",
     "load_matched",
     "load_torch_checkpoint",
+    "rename_clip_joint_key",
     "rename_clip_key",
     "rename_lgm_key",
     "rename_lpips_key",
@@ -107,6 +108,13 @@ def rename_clip_key(k: str) -> Optional[str]:
     return k
 
 
+def rename_clip_joint_key(k: str) -> Optional[str]:
+    """OpenCLIP keys for the joint text + visual module
+    (``OpenCLIPTextVisual``): everything but the logit scale, under the
+    released names (``visual.*`` beside the text tower's keys)."""
+    return None if k == "logit_scale" else k
+
+
 def load_matched(module: nn.Module, sd: Mapping[str, torch.Tensor],
                  rename: Optional[Callable[[str], Optional[str]]] = None) -> dict:
     """Copy the entries of ``sd`` whose (renamed) key and shape match
@@ -166,9 +174,14 @@ def state_dict_from_flax(flat_params: Mapping[str, np.ndarray], module: nn.Modul
     ``.weight``; Dense kernels are transposed (and gain a trailing axis
     where the port holds a k=1 Conv1d); conv kernels go HWIO → OIHW (and
     THWIO → OITHW); CLIP q/k/v are packed into ``in_proj_*``. The module's
-    own shapes resolve the ambiguous cases. A missing, unexpected or
-    mismatched key raises."""
+    own shapes resolve the ambiguous cases. The joint CLIP tree nests its
+    towers under ``text`` / ``visual`` where the port (and the released file)
+    keeps the text tower's keys at the top level: a tree with ``visual``
+    leaves has the ``text`` prefix of its other leaves dropped. A missing,
+    unexpected or mismatched key raises."""
     flat = {_norm_flax_key(k): np.asarray(v) for k, v in flat_params.items()}
+    if any(k.startswith("visual_") for k in flat):
+        flat = {(k[len("text_"):] if k.startswith("text_") else k): v for k, v in flat.items()}
     out: Dict[str, torch.Tensor] = {}
     used = set()
     missing, mismatched = [], []
