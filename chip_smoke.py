@@ -5,7 +5,8 @@
 Phases (each prints its lines; a failed phase exits non-zero):
   1. environment: torch/CUDA versions, device, power limit, optional deps;
   2. build: compile csrc/*.cu with nvcc (one process per source, all at
-     once), print the ptxas resource lines;
+     once), print the ptxas resource lines and the tiling of the wgmma
+     kernels (attention, FFN), which must show no spills;
   3. kernels: each CUDA kernel against its plain PyTorch twin at the shapes
      the served and trained paths give it — flash attention and the GEGLU
      FFN in bf16 (error vs an fp32 computation), the splat composite on one
@@ -20,8 +21,9 @@ Phases (each prints its lines; a failed phase exits non-zero):
      path's time beside it; its backward); CUDA-event times in turns
      plain/kernel/kernel/plain beside each kernel's bound (the larger of its
      bytes over 3.35 TB/s and its operations over the peak rate of their
-     type) and, for attention, the time of one
-     scaled_dot_product_attention call as a yardstick; launch counters;
+     type), its share of that bound, which hand-written kernel served the
+     shape and, for attention, the time of one scaled_dot_product_attention
+     call as a yardstick; launch counters; two launches bit-equal;
   4. unet: one full-width (dim 320) CFG forward at 8 views with seeded
      weights, bf16 with the kernels on the card vs fp32 plain on the host;
   5. refine: one Gaussian-splat refine step (refine_fn) at full width,
@@ -60,7 +62,8 @@ last line is {"ok": true, "device": {...}}. There is no CPU fallback: with
 no CUDA device the script fails before printing any result.
 
 ``--phases env,build,kernels`` runs a subset (for bring-up of one part);
-``--kernels fused_spatial`` cuts the kernels phase to the fused block.
+``--kernels geglu_ffn,flash_attention`` cuts the kernels phase to the named
+kernels.
 """
 
 from __future__ import annotations
@@ -219,6 +222,13 @@ SPATIAL_SHAPES = {(48, 145): 235, (24, 145): 15, (48, 77): 0}
 SPATIAL_S, SPATIAL_C, SPATIAL_HEADS, SPATIAL_CC = 1024, 320, 5, 1024
 SPATIAL_FLAG = "VIDEOMV_ENABLE_FUSED_SPATIAL"
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train")
+# Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
+# kernel at the served 48-row shapes with parts of it compiled out (the
+# VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
+# what each part costs), one child process per build (`ffn_times`).
+EXTRA_PHASES = ("ffn_ablation", "ffn_times")
+FFN_ABLATIONS = ("", "VMV_NOGELU", "VMV_NOG1", "VMV_NOG2", "VMV_NOLOAD",
+                 "VMV_NOGELU,VMV_NOG1,VMV_NOG2", "VMV_NOLOAD,VMV_NOGELU,VMV_NOG1,VMV_NOG2")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -272,9 +282,41 @@ def phase_build():
         fail("build", f"{type(e).__name__}: {e}")
     info = _build.build_info()
     ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+             or "Performance Loss" in ln]
     for ln in ptxas:
         print(f"  {ln}", flush=True)
+    # the wgmma kernels of attention and the FFN: registers and spills from
+    # ptxas, shared memory from the wrappers' plans; a spill or a serialised
+    # wgmma pipeline in them fails the build phase
+    from videomv_tpu_torch.ops import flash_attention as fa
+    from videomv_tpu_torch.ops import fused_ffn as ff
+
+    entry, found = None, {}
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            entry = ln
+        elif "spill" in ln and entry and "wgmma_kernel" in entry:
+            found[entry] = [ln]
+        elif "Used" in ln and entry in found:
+            found[entry].append(ln)
+    bad = [ln for ln in ptxas if "Performance Loss" in ln and "wgmma_kernel" in ln]
+    for entry, (spill, *used) in found.items():
+        name = "flash_attn_wgmma_kernel" if "flash_attn" in entry else (
+            "geglu_ffn_wgmma_kernel<%s>" % entry.split("wgmma_kernelILi")[1].split("E")[0])
+        say("build", f"{name}: {(used or ['?'])[0].split(':', 1)[-1].strip()}; {spill}")
+        if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+            bad.append(f"{name} spills: {spill}")
+    if len(found) != 1 + len(ff.WGMMA_WIDTHS):
+        bad.append(f"expected {1 + len(ff.WGMMA_WIDTHS)} wgmma kernels in the log, "
+                   f"found {len(found)}")
+    if bad and not info["cached"]:
+        fail("build", "; ".join(bad))
+    say("build", f"flash_attn_wgmma_kernel: {fa.WGMMA_SMEM_BYTES} B dynamic shared, 384 threads "
+        f"({fa.WGMMA_Q_ROWS} query rows, {fa.WGMMA_KEYS}-key tiles, {fa.WGMMA_STAGES} stages); "
+        f"tensor map of [48,1024,5,64]: {fa.attention_tensor_map(48, 1024, 5, 64)}")
+    for c in ff.WGMMA_WIDTHS:
+        say("build", f"geglu_ffn_wgmma_kernel<{c}>: {ff.ffn_plan(c)}")
     say("build", f"{info['path']} in {info['seconds']:.1f}s (cached={info['cached']})")
 
 
@@ -695,17 +737,51 @@ _ZERO_COUNTS = {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
                 "splat_composite_bwd": 0, "fused_spatial": 0}
 
 
+def phase_ffn_times(torch, defines):
+    """CUDA-event ms of the FFN kernel at the served 48-row shapes, built
+    with ``defines``."""
+    from videomv_tpu_torch.ops.fused_ffn import geglu_ffn
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = []
+    for t, c, inner in list(FFN_SHAPES)[:3]:
+        x = torch.randn(t, c, generator=gen, device=dev).bfloat16()
+        w1 = (torch.randn(2 * inner, c, generator=gen, device=dev) * c ** -0.5).bfloat16()
+        w2 = (torch.randn(c, inner, generator=gen, device=dev) * inner ** -0.5).bfloat16()
+        b1 = torch.randn(2 * inner, generator=gen, device=dev) * 0.1
+        b2 = torch.randn(c, generator=gen, device=dev) * 0.1
+        ms = _time_one(torch, lambda: geglu_ffn(x, w1, b1, w2, b2))
+        times.append(f"[T={t}, C={c}] {ms:.4f} ms")
+    say("ffn_times", f"built with {defines or 'no switch'}: " + "; ".join(times))
+
+
+def phase_ffn_ablation():
+    for defines in FFN_ABLATIONS:
+        cmd = [sys.executable, os.path.abspath(__file__), "--phases", "ffn_times"]
+        out = subprocess.run(cmd + (["--define", defines] if defines else []),
+                             capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[ffn_times]")]
+        if out.returncode != 0 or not lines:
+            fail("ffn_ablation", f"{defines}: exit {out.returncode}\n{out.stdout[-2000:]}"
+                 f"\n{out.stderr[-2000:]}")
+        print(lines[-1], flush=True)
+
+
 def phase_kernels(torch, only=None):
     from videomv_tpu_torch import ops
+    from videomv_tpu_torch.ops import flash_attention as fa
+    from videomv_tpu_torch.ops import fused_ffn as ff
     from videomv_tpu_torch.ops.flash_attention import attention_reference, flash_attention
     from videomv_tpu_torch.ops.fused_ffn import geglu_ffn, geglu_ffn_reference
 
     dev = torch.device("cuda", 0)
-    if only == ["fused_spatial"]:  # bring-up of kernel 5 alone
-        return {"fused_spatial": _spatial_kernel_checks(torch, dev)}
+    def chosen(name):  # --kernels cuts the phase to the named kernels
+        return only is None or name in only
+
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
-    results = {"flash_attention": [], "geglu_ffn": []}
+    results = {name: [] for name in ("flash_attention", "geglu_ffn") if chosen(name)}
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
@@ -722,19 +798,27 @@ def phase_kernels(torch, only=None):
 
     import torch.nn.functional as F
 
-    for shape in ATTN_SHAPES:
+    for shape in (ATTN_SHAPES if chosen("flash_attention") else ()):
         q, k, v = (randn(*shape) for _ in range(3))
         ops.reset_launch_counts()
         kern = flash_attention(q, k, v)
         torch.cuda.synchronize()
         if ops.launch_counts()["flash_attention"] != 1:
             fail("kernels", f"attention {shape}: launch counter did not move")
+        if not torch.equal(flash_attention(q, k, v), kern):  # one writer per element
+            fail("kernels", f"attention {shape}: two launches differ")
         twin = attention_reference(q, k, v)
         ref32 = attention_reference(q.float(), k.float(), v.float())
         k_err, t_err, kt = errs(kern, twin, ref32)
         ms, plain_ms = _time_turns(torch, lambda: attention_reference(q, k, v),
                                    lambda: flash_attention(q, k, v))
         ok = k_err <= 2 * t_err + KERNEL_EPS and kt <= KERNEL_VS_TWIN_TOL
+        # the other hand-written kernel on the same input, in turns with the
+        # serving one: the dispatch by shape must have picked the faster
+        served = fa.attention_variant(*shape)
+        other_ms, served_ms = _time_turns(  # (second, first)
+            torch, lambda: fa._launch(q, k, v, variant=served),
+            lambda: fa._launch(q, k, v, variant=fa.VARIANT_MMA + fa.VARIANT_WGMMA - served))
         # the yardstick: one library call for the same function (the port
         # never calls it); it takes [B, H, S, D]
         qt, kt_, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -746,19 +830,23 @@ def phase_kernels(torch, only=None):
             shape=list(shape), calls_per_request=ATTN_SHAPES[shape],
             calls_per_train_step=TRAIN_ATTN_SHAPES.get(shape, 0), err_vs_fp32=k_err,
             twin_err_vs_fp32=t_err, max_abs_err=kt, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-        say("kernels", f"flash_attention {list(shape)}: |k-fp32| {k_err:.3e} "
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            variant=fa.VARIANT_NAMES[served], share_of_bound=bound_ms / ms,
+            other_variant_ms=other_ms, served_variant_ms_in_turns=served_ms))
+        say("kernels", f"flash_attention {list(shape)} ({fa.VARIANT_NAMES[served]} "
+            f"kernel, {100 * bound_ms / ms:.1f}% of its bound): |k-fp32| {k_err:.3e} "
             f"|twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) library call "
             f"(scaled_dot_product_attention) {library_ms:.4f} ms, its |fp32| error "
-            f"{lib_err:.3e} {'ok' if ok else 'FAIL'}")
+            f"{lib_err:.3e}; in turns with the other hand-written kernel: serving "
+            f"{served_ms:.4f} ms, other {other_ms:.4f} ms {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"flash_attention {shape} outside its error bound")
         del q, k, v, kern, twin, ref32, qt, kt_, vt
 
     # backward through the autograd.Function (kernel forward, twin recompute)
     # against autograd through the twin alone, at the LGM's trained shapes
-    for shape in ((1, 1024, 16, 64), (1, 256, 16, 64)):
+    for shape in (((1, 1024, 16, 64), (1, 256, 16, 64)) if chosen("flash_attention") else ()):
         q, k, v = (randn(*shape).requires_grad_() for _ in range(3))
         go = randn(*shape)
         ops.reset_launch_counts()
@@ -774,7 +862,7 @@ def phase_kernels(torch, only=None):
             fail("kernels", f"flash_attention backward {shape} differs from its twin's")
         del q, k, v, go, got, want
 
-    for t, c, inner in FFN_SHAPES:
+    for t, c, inner in (FFN_SHAPES if chosen("geglu_ffn") else ()):
         x = randn(t, c)
         w1 = randn(2 * inner, c, scale=c ** -0.5)
         w2 = randn(c, inner, scale=inner ** -0.5)
@@ -785,21 +873,31 @@ def phase_kernels(torch, only=None):
         torch.cuda.synchronize()
         if ops.launch_counts()["geglu_ffn"] != 1:
             fail("kernels", f"ffn {(t, c, inner)}: launch counter did not move")
+        if not torch.equal(geglu_ffn(x, w1, b1, w2, b2), kern):  # one writer per element
+            fail("kernels", f"ffn {(t, c, inner)}: two launches differ")
         twin = geglu_ffn_reference(x, w1, b1, w2, b2)
         ref32 = geglu_ffn_reference(x.float(), w1.float(), b1, w2.float(), b2)
         k_err, t_err, kt = errs(kern, twin, ref32)
         ms, plain_ms = _time_turns(torch, lambda: geglu_ffn_reference(x, w1, b1, w2, b2),
                                    lambda: geglu_ffn(x, w1, b1, w2, b2))
         ok = k_err <= 2 * t_err + KERNEL_EPS and kt <= KERNEL_VS_TWIN_TOL
+        served = ff.ffn_variant(t, c, inner)
+        other_ms, served_ms = _time_turns(  # (second, first)
+            torch, lambda: ff._launch(x, w1, b1, w2, b2, variant=served),
+            lambda: ff._launch(x, w1, b1, w2, b2,
+                               variant=ff.VARIANT_MMA + ff.VARIANT_WGMMA - served), iters=10)
         bound_ms, bound_by = _ffn_bound(t, c, inner)
         results["geglu_ffn"].append(dict(
             shape=[t, c, inner], calls_per_request=FFN_SHAPES[(t, c, inner)],
             calls_per_train_step=0, err_vs_fp32=k_err, twin_err_vs_fp32=t_err,
             max_abs_err=kt, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
-        say("kernels", f"geglu_ffn [T={t}, C={c}, I={inner}]: |k-fp32| {k_err:.3e} "
+            library_ms=None, variant=ff.VARIANT_NAMES[served], share_of_bound=bound_ms / ms,
+            other_variant_ms=other_ms, served_variant_ms_in_turns=served_ms))
+        say("kernels", f"geglu_ffn [T={t}, C={c}, I={inner}] ({ff.VARIANT_NAMES[served]} "
+            f"kernel, {100 * bound_ms / ms:.1f}% of its bound): |k-fp32| {k_err:.3e} "
             f"|twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); in turns with the "
+            f"other hand-written kernel: serving {served_ms:.4f} ms, other {other_ms:.4f} ms "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"geglu_ffn {(t, c, inner)} outside its error bound")
@@ -819,9 +917,12 @@ def phase_kernels(torch, only=None):
                 fail("kernels", "geglu_ffn backward differs from its twin's")
             del args, go, got, want
         del x, w1, w2, b1, b2, kern, twin, ref32
-    results["splat_composite"], results["splat_composite_bwd"] = _splat_kernel_checks(torch, dev)
+    if chosen("splat_composite"):
+        results["splat_composite"], results["splat_composite_bwd"] = _splat_kernel_checks(
+            torch, dev)
     torch.cuda.empty_cache()
-    results["fused_spatial"] = _spatial_kernel_checks(torch, dev)
+    if chosen("fused_spatial"):
+        results["fused_spatial"] = _spatial_kernel_checks(torch, dev)
     return results
 
 
@@ -830,17 +931,29 @@ def main(argv=None):
     p.add_argument("--phases", default=",".join(PHASES),
                    help="comma-separated subset of " + ",".join(PHASES))
     p.add_argument("--kernels", default="",
-                   help="'fused_spatial': the kernels phase checks kernel 5 alone")
+                   help="comma-separated kernel names: the kernels phase checks these alone")
+    p.add_argument("--define", default="",
+                   help="comma-separated macros passed to nvcc as -D (the ablation switches)")
     args = p.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
 
     sys.path.insert(0, ROOT)
     import torch
 
+    if args.define:
+        from videomv_tpu_torch.ops import _build
+
+        _build.NVCC_FLAGS.extend("-D" + d for d in args.define.split(",") if d)
+    if "ffn_times" in phases:  # a child of the ablation: nothing else runs
+        if not torch.cuda.is_available():
+            fail("ffn_times", "needs a CUDA device")
+        return phase_ffn_times(torch, args.define)
     smi = phase_env(torch)
+    if "ffn_ablation" in phases:
+        phase_ffn_ablation()
     if "build" in phases or "kernels" in phases:
         phase_build()
     only = [s for s in args.kernels.split(",") if s] or None
@@ -1463,8 +1576,8 @@ def phase_i2v(torch):
 _KERNEL_CLASSES = (  # (class, name substrings), first match wins
     ("fused_spatial (ours)", ("spatial_block_kernel", "spatial_kv_kernel", "ctx_kv_kernel",
                               "gn_stats_kernel")),
-    ("flash_attention (ours)", ("flash_attn_fwd_kernel",)),
-    ("geglu_ffn (ours)", ("geglu_ffn_kernel",)),
+    ("flash_attention (ours)", ("flash_attn_fwd_kernel", "flash_attn_wgmma_kernel")),
+    ("geglu_ffn (ours)", ("geglu_ffn_kernel", "geglu_ffn_wgmma_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "matmul")),
     ("normalisation", ("norm", "moments")),

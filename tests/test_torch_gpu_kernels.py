@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from videomv_tpu_torch import ops
-from videomv_tpu_torch.ops.flash_attention import attention_reference, flash_attention
-from videomv_tpu_torch.ops.fused_ffn import geglu_ffn, geglu_ffn_reference
+from videomv_tpu_torch.ops import flash_attention as fa
+from videomv_tpu_torch.ops.flash_attention import (
+    VARIANT_MMA, VARIANT_WGMMA, attention_reference, attention_variant, flash_attention)
+from videomv_tpu_torch.ops.fused_ffn import ffn_variant, geglu_ffn, geglu_ffn_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +62,48 @@ def test_flash_attention_matches_fp32(cuda, shape):
     assert ok, errs
 
 
+# the tile edges of both kernels at B·H = 1: one 64-key tile, one 128-key tile,
+# one and a half, eight. The wrapper sends so small a grid to the mma.sync
+# kernel; where the wgmma kernel takes the shape it is launched as well.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 128, 192, 1024])
+def test_flash_attention_tile_edges(cuda, s, d):
+    shape = (1, s, 1, d)
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (_randn(gen, cuda, *shape) for _ in range(3))
+    twin = attention_reference(q, k, v)
+    ref32 = attention_reference(q.float(), k.float(), v.float())
+    assert attention_variant(*shape) == VARIANT_MMA
+    variants = [VARIANT_MMA] + ([VARIANT_WGMMA] if d == 64 and s % 128 == 0 else [])
+    for variant in variants:
+        ops.reset_launch_counts()
+        kern = fa._launch(q, k, v, variant=variant)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 1
+        ok, errs = _within_bound(kern, twin, ref32)
+        assert ok, (variant, errs)
+        assert torch.equal(fa._launch(q, k, v, variant=variant), kern)  # one writer per element
+    if len(variants) == 1:  # the wgmma kernel does not take the shape: refused, not rerouted
+        with pytest.raises(RuntimeError):
+            fa._launch(q, k, v, variant=VARIANT_WGMMA)
+    assert torch.equal(flash_attention(q, k, v), fa._launch(q, k, v, variant=VARIANT_MMA))
+
+
+@pytest.mark.parametrize("shape", [(32, 256, 3, 64), (1, 192, 2, 64)])
+def test_flash_attention_large_logits(cuda, shape):
+    """|q·k|·scale of the order of 80: the online softmax must neither
+    overflow nor lose the rows whose maximum arrives in a later tile."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (_randn(gen, cuda, *shape) for _ in range(3))
+    q, k = q * 3.2, k * 3.2   # logits ~ N(0, 10.2² · 64) / 8: a few rows beyond 80
+    q[:, 5], k[:, shape[1] - 3] = 9.0, 9.0   # a maximum of 81 · 64 / 8 = 648 in the last tile
+    kern = flash_attention(q, k, v)
+    ref32 = attention_reference(q.float(), k.float(), v.float())
+    assert torch.isfinite(kern).all()
+    ok, errs = _within_bound(kern, attention_reference(q, k, v), ref32)
+    assert ok, errs
+
+
 def test_flash_attention_rejects_what_it_cannot_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, cuda, 2, 128, 2, 64)
@@ -94,6 +138,27 @@ def test_geglu_ffn_matches_fp32(cuda, t, c, inner):
     ok, errs = _within_bound(kern, geglu_ffn_reference(x, w1, b1, w2, b2),
                              geglu_ffn_reference(x.float(), w1.float(), b1, w2.float(), b2))
     assert ok, errs
+
+
+# the tile edges of the wgmma kernel (64 token rows a block): fewer rows than
+# a tile, one short of and one past two tiles, ragged last tiles
+@pytest.mark.parametrize("c", [320, 512, 640])
+@pytest.mark.parametrize("t", [1, 127, 129, 333, 4100])
+def test_geglu_ffn_tile_edges(cuda, t, c):
+    inner = 4 * c
+    gen = torch.Generator(device=cuda).manual_seed(t + c)
+    x = _randn(gen, cuda, t, c)
+    w1 = _randn(gen, cuda, 2 * inner, c, scale=c ** -0.5)
+    w2 = _randn(gen, cuda, c, inner, scale=inner ** -0.5)
+    b1 = _randn(gen, cuda, 2 * inner, scale=0.1, dtype=torch.float32)
+    b2 = _randn(gen, cuda, c, scale=0.1, dtype=torch.float32)
+    assert ffn_variant(t, c, inner) == 1
+    kern = geglu_ffn(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    ok, errs = _within_bound(kern, geglu_ffn_reference(x, w1, b1, w2, b2),
+                             geglu_ffn_reference(x.float(), w1.float(), b1, w2.float(), b2))
+    assert ok, errs
+    assert torch.equal(geglu_ffn(x, w1, b1, w2, b2), kern)  # one writer per element
 
 
 def test_geglu_ffn_rejects_what_it_cannot_take(cuda):

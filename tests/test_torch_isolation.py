@@ -103,16 +103,24 @@ def test_every_cuda_source_is_built_and_bound():
     assert [os.path.basename(s) for s in srcs] == [
         "flash_attention.cu", "fused_ffn.cu", "fused_spatial.cu", "splat_composite.cu",
         "splat_composite_bwd.cu"]
-    entry = set()
+    entry = {}
     for path in srcs:
         text = open(path).read()
-        entry.update(re.findall(r'extern "C" int (\w+)\(', text))
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            entry[name] = len([p for p in params.split(",") if p.strip()])
         assert "// Replaces: videomv_tpu/ops/" in text, path
-    assert entry == set(_build._SIGNATURES)
+    # the same names, and as many arguments as the ctypes signature passes
+    assert entry == {name: len(sig) for name, sig in _build._SIGNATURES.items()}
     # kernels 1, 2 and 5 share their tile code through headers, not copies
     for hdr, users in (("attention_tile.cuh", ("flash_attention.cu", "fused_spatial.cu")),
                        ("ffn_tile.cuh", ("fused_ffn.cu", "fused_spatial.cu"))):
         assert os.path.exists(os.path.join(_build.CSRC_DIR, hdr))
         for u in users:
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
+    # the wgmma kernels of attention and the FFN have their own helpers
+    for hdr in ("hopper_utils.cuh", "wgmma_ops.cuh"):
+        for u in ("flash_attention.cu", "fused_ffn.cu"):
+            assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
+        assert f'#include "{hdr}"' not in open(os.path.join(_build.CSRC_DIR,
+                                                            "fused_spatial.cu")).read()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

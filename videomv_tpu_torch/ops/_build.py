@@ -37,8 +37,10 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; every pointer and the stream are
 # void*, so ctypes never truncates them to 32-bit ints
 _SIGNATURES = {
-    "vmv_flash_attn_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_float, _c_void_p],
-    "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
+    # q, k, v, o, then B, S, H, D, the scale, variant
+    "vmv_flash_attn_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_float, _c_int, _c_void_p],
+    # x, w1, b1, w2, b2, out, then T, C, I, variant
+    "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
     "vmv_splat_composite_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p],
     "vmv_splat_composite_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
     # a host array of the device pointers, then R, S, C, L, Cc, heads, inner

@@ -8,6 +8,9 @@ the transposes of the JAX package's ``[C, 2I]`` / ``[I, C]``). On a CUDA
 tensor it launches the hand-written kernel (bf16 x and weights, fp32
 biases) or raises; on a CPU tensor it runs ``geglu_ffn_reference``. The
 fp32 sampling mode never reaches the kernel (``ffn_eligible`` is bf16-only).
+Two kernels sit behind the one entry point, chosen by shape
+(``ffn_variant``): the wgmma kernel for the UNet's widths, the mma.sync
+kernel for the rest.
 
 ``LAUNCHES`` counts kernel launches (and nothing else);
 ``LAUNCHES_BY_SHAPE`` holds the same count split by the ``(T, C, I)`` of
@@ -27,10 +30,65 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_SHAPE", "ffn_eligible", "geglu_ffn", "geglu_ffn_reference"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_SHAPE", "VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA",
+           "WGMMA_WIDTHS", "ffn_eligible", "ffn_plan", "ffn_tensor_maps", "ffn_variant",
+           "geglu_ffn", "geglu_ffn_reference"]
 
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict = {}
+
+# The two hand-written kernels behind ``vmv_geglu_ffn_fwd`` (csrc/fused_ffn.cu):
+# the wgmma kernel (TMA-staged weight tiles, register accumulators) is
+# instantiated for the UNet's widths, the mma.sync kernel takes every other
+# width the wrapper accepts. The choice is by shape, made here and checked
+# again by the C entry point.
+VARIANT_MMA, VARIANT_WGMMA = 0, 1
+VARIANT_NAMES = {VARIANT_MMA: "mma.sync", VARIANT_WGMMA: "wgmma"}
+WGMMA_WIDTHS = (320, 512, 640)
+
+
+MAX_DYNAMIC_SMEM = 232448  # bytes one block may ask for on sm_90
+
+
+def ffn_variant(t: int, c: int, inner: int) -> int:
+    """Which kernel serves ``x [t, c]`` with ``inner`` hidden columns."""
+    return VARIANT_WGMMA if c in WGMMA_WIDTHS else VARIANT_MMA
+
+
+def ffn_plan(c: int) -> dict:
+    """The wgmma kernel's tiling at width ``c``, as ``FfnWg<C>`` of
+    csrc/fused_ffn.cu lays it out (sizes in bytes): 64 token rows a block, two
+    consumer warpgroups that split the columns, x as ``c / 64`` swizzled
+    tiles, two g tiles, and a ring of weight stages that takes the rest of
+    the shared memory."""
+    if c not in WGMMA_WIDTHS:
+        raise ValueError(f"the wgmma kernel is built for C in {WGMMA_WIDTHS}, got {c}")
+    lin_cols = 32                              # of a chunk, per warpgroup (as many gate)
+    w2_rows = 80 if c % 160 == 0 else 64       # per warpgroup and W2 stage
+    w1_stage = 2 * 2 * lin_cols * 128          # one K block of 64 columns of x
+    w2_stage = 2 * w2_rows * 128
+    stage = max(w1_stage, w2_stage)
+    fixed = (c // 64) * 8192 + 2 * 8192
+    stages = min(8, (MAX_DYNAMIC_SMEM - 1024 - fixed - 1024) // stage)
+    producer = c <= 320
+    return dict(rows=64, chunk=64, lin_cols=lin_cols, w1_stages=c // 64, w2_rows=w2_rows,
+                w2_stages=c // 2 // w2_rows, accumulator_registers=c // 4 + lin_cols,
+                stage_bytes=stage, stages=stages,
+                smem_bytes=1024 + fixed + stages * stage + 1024,
+                producer_warpgroup=producer, threads=256 + (128 if producer else 0))
+
+
+def ffn_tensor_maps(t: int, c: int, inner: int) -> dict:
+    """The three TMA tensor maps of one wgmma launch, innermost dimension
+    first (elements; strides in bytes of the outer dimensions; the box is one
+    TMA load): every box is 64 bf16 = one 128-byte swizzle row wide."""
+    plan = ffn_plan(c)
+    return {
+        "x": dict(dims=(c, t), strides_bytes=(2 * c,), box=(64, plan["rows"])),
+        "w1": dict(dims=(c, 2 * inner), strides_bytes=(2 * c,),
+                   box=(64, plan["lin_cols"])),
+        "w2": dict(dims=(inner, c), strides_bytes=(2 * inner,), box=(64, plan["w2_rows"])),
+    }
 
 
 def geglu_ffn_reference(x, w1, b1, w2, b2):
@@ -79,11 +137,14 @@ def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
         raise ValueError(
             f"geglu_ffn: the kernel takes C % 16 == 0, C <= 1024, I % 64 == 0; "
             f"got C={c}, I={inner}")
-    if x.data_ptr() % 16 != 0:
-        raise ValueError("geglu_ffn: x must be 16-byte aligned")
+    for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"geglu_ffn: {name} must be 16-byte aligned")
 
 
-def _launch(x, w1, b1, w2, b2):
+def _launch(x, w1, b1, w2, b2, variant=None):
+    """One kernel launch; ``variant`` (for measurements that time both
+    kernels on one input) overrides the choice by shape and must take it."""
     global LAUNCHES
     _check_cuda_inputs(x, w1, b1, w2, b2)
     t, c = x.shape
@@ -92,7 +153,8 @@ def _launch(x, w1, b1, w2, b2):
     lib = _build.load_library()
     err = lib.vmv_geglu_ffn_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), t, c, inner, torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), t, c, inner, ffn_variant(t, c, inner) if variant is None else variant,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "vmv_geglu_ffn_fwd")
     LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(t, c, inner)] = LAUNCHES_BY_SHAPE.get((t, c, inner), 0) + 1
