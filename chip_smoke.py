@@ -6,7 +6,8 @@ Phases (each prints its lines; a failed phase exits non-zero):
   1. environment: torch/CUDA versions, device, power limit, optional deps;
   2. build: compile csrc/*.cu with nvcc (one process per source, all at
      once), print the ptxas resource lines and the tiling of the wgmma
-     kernels (attention, FFN), which must show no spills;
+     kernels (attention, FFN, the fused spatial block's three phases), which
+     must show no spills and no serialised wgmma;
   3. kernels: each CUDA kernel against its plain PyTorch twin at the shapes
      the served and trained paths give it — flash attention and the GEGLU
      FFN in bf16 (error vs an fp32 computation), the splat composite on one
@@ -17,8 +18,9 @@ Phases (each prints its lines; a failed phase exits non-zero):
      against the dense oracle, the backward of the attention and FFN
      wrappers against autograd of their twins, and the fused spatial block
      at the UNet's 32² / C = 320 stage over the I2V and T2V contexts (error
-     vs its fp32 twin, held to twice the bf16 module path's; the module
-     path's time beside it; its backward); CUDA-event times in turns
+     vs its fp32 twin, held to twice the bf16 module path's, for both
+     hand-written kernels; the module path's time beside it; its backward);
+     CUDA-event times in turns
      plain/kernel/kernel/plain beside each kernel's bound (the larger of its
      bytes over 3.35 TB/s and its operations over the peak rate of their
      type), its share of that bound, which hand-written kernel served the
@@ -32,8 +34,9 @@ Phases (each prints its lines; a failed phase exits non-zero):
   6. slice: configs/t2v_infer.yaml as shipped (refine on, shared uncond)
      served at full width, 24 views, 256², 50 DDIM steps, CFG 9.0, bf16 —
      two plain requests, two refined requests (the first of each is
-     warm-up), one refined request with full uncond, a PLY export read
-     back, then the CLI's main() once;
+     warm-up), two plain requests with the fused spatial block switched on,
+     one refined request with full uncond, a PLY export read back, then the
+     CLI's main() once;
   7. profile: where a request's time goes — CUDA-event times of a CFG
      forward, the VAE decode, the text encode, the parts of one refine
      step and the LGM's plain head_dim-32 attention, and the device
@@ -149,6 +152,10 @@ I2V_REFINED_ON = {"flash_attention": 283, "geglu_ffn": 800, "splat_composite": 3
 I2V_FUSED_BY_SHAPE = {"plain": {(48, 1024, 320, 145): 250},
                       "refined": {(48, 1024, 320, 145): 235, (24, 1024, 320, 145): 15}}
 I2V_CFG = "configs/i2vgen_xl_infer.yaml"
+# a plain T2V request with the switch on: its 32² blocks over the 77-token
+# text context, as in the I2V request
+T2V_PLAIN_ON = dict(I2V_PLAIN_ON)
+T2V_FUSED_BY_SHAPE = {(48, 1024, 320, 77): 250}
 # One LGM-refine train step at batch 1 (configs/t2v_train.yaml with
 # UNet.use_lgm_refine True): the frozen UNet's forward at 24 rows without
 # grad (5 + 5 attention launches; in training mode its FFN gate is closed),
@@ -216,17 +223,27 @@ REFINE_L2_TOL = 0.5
 # The fused spatial block (kernel 5) at the UNet's 32² / C = 320 stage, as
 # (rows, context tokens) with its calls per I2V request with the flag on: 50
 # CFG forwards at 48 rows over the 145-token I2V context (5 blocks each), the
-# `shared` refine's 3 forwards at 24 rows; the 77-token T2V context is checked
-# too (the flag serves T2V as well, no phase here drives it).
+# `shared` refine's 3 forwards at 24 rows; the 77-token T2V context (250
+# calls per plain T2V request with the flag on, which the slice phase serves).
 SPATIAL_SHAPES = {(48, 145): 235, (24, 145): 15, (48, 77): 0}
 SPATIAL_S, SPATIAL_C, SPATIAL_HEADS, SPATIAL_CC = 1024, 320, 5, 1024
 SPATIAL_FLAG = "VIDEOMV_ENABLE_FUSED_SPATIAL"
+# the three __global__s of kernel 5's wgmma variant (phases A, B, C)
+SPATIAL_WGMMA_KERNELS = ("spatial_ctx_kv_wgmma_kernel", "spatial_front_kv_wgmma_kernel",
+                         "spatial_block_wgmma_kernel")
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
 # what each part costs), one child process per build (`ffn_times`).
-EXTRA_PHASES = ("ffn_ablation", "ffn_times")
+EXTRA_PHASES = ("ffn_ablation", "ffn_times", "spatial_ablation", "spatial_times")
+# `--phases env,spatial_ablation` does the same for kernel 5's wgmma kernels at
+# the served I2V shape (the VMV_SP_* switches of csrc/fused_spatial.cu), with
+# each __global__'s share from torch.profiler (`spatial_times`).
+SPATIAL_ABLATIONS = ("", "VMV_SP_NOLOAD", "VMV_SP_NOKV", "VMV_SP_NOGEMM", "VMV_SP_NOATTN",
+                     "VMV_SP_NOEXP", "VMV_SP_NOLOAD,VMV_SP_NOKV",
+                     "VMV_SP_NOGEMM,VMV_SP_NOATTN,VMV_SP_NOEXP",
+                     "VMV_SP_NOLOAD,VMV_SP_NOKV,VMV_SP_NOGEMM,VMV_SP_NOATTN,VMV_SP_NOEXP")
 FFN_ABLATIONS = ("", "VMV_NOGELU", "VMV_NOG1", "VMV_NOG2", "VMV_NOLOAD",
                  "VMV_NOGELU,VMV_NOG1,VMV_NOG2", "VMV_NOLOAD,VMV_NOGELU,VMV_NOG1,VMV_NOG2")
 
@@ -286,30 +303,31 @@ def phase_build():
              or "Performance Loss" in ln]
     for ln in ptxas:
         print(f"  {ln}", flush=True)
-    # the wgmma kernels of attention and the FFN: registers and spills from
-    # ptxas, shared memory from the wrappers' plans; a spill or a serialised
-    # wgmma pipeline in them fails the build phase
+    # the wgmma kernels (attention, the FFN, the fused spatial block's three
+    # phases): registers and spills from ptxas, shared memory from the
+    # wrappers' plans; a spill or a serialised wgmma pipeline in them fails
+    # the build phase
     from videomv_tpu_torch.ops import flash_attention as fa
     from videomv_tpu_torch.ops import fused_ffn as ff
+    from videomv_tpu_torch.ops import fused_spatial as fs
 
     entry, found = None, {}
     for ln in ptxas:
         if "Compiling entry" in ln:
-            entry = ln
-        elif "spill" in ln and entry and "wgmma_kernel" in entry:
+            entry = _kernel_name(ln)
+        elif "spill" in ln and entry:
             found[entry] = [ln]
         elif "Used" in ln and entry in found:
             found[entry].append(ln)
     bad = [ln for ln in ptxas if "Performance Loss" in ln and "wgmma_kernel" in ln]
-    for entry, (spill, *used) in found.items():
-        name = "flash_attn_wgmma_kernel" if "flash_attn" in entry else (
-            "geglu_ffn_wgmma_kernel<%s>" % entry.split("wgmma_kernelILi")[1].split("E")[0])
+    for name, (spill, *used) in found.items():
         say("build", f"{name}: {(used or ['?'])[0].split(':', 1)[-1].strip()}; {spill}")
         if "0 bytes spill stores, 0 bytes spill loads" not in spill:
             bad.append(f"{name} spills: {spill}")
-    if len(found) != 1 + len(ff.WGMMA_WIDTHS):
-        bad.append(f"expected {1 + len(ff.WGMMA_WIDTHS)} wgmma kernels in the log, "
-                   f"found {len(found)}")
+    want = ({"flash_attn_wgmma_kernel"} | {f"geglu_ffn_wgmma_kernel<{c}>" for c in ff.WGMMA_WIDTHS}
+            | set(SPATIAL_WGMMA_KERNELS))
+    if set(found) != want:
+        bad.append(f"expected the wgmma kernels {sorted(want)} in the log, found {sorted(found)}")
     if bad and not info["cached"]:
         fail("build", "; ".join(bad))
     say("build", f"flash_attn_wgmma_kernel: {fa.WGMMA_SMEM_BYTES} B dynamic shared, 384 threads "
@@ -317,7 +335,25 @@ def phase_build():
         f"tensor map of [48,1024,5,64]: {fa.attention_tensor_map(48, 1024, 5, 64)}")
     for c in ff.WGMMA_WIDTHS:
         say("build", f"geglu_ffn_wgmma_kernel<{c}>: {ff.ffn_plan(c)}")
+    plan = fs.spatial_plan()
+    say("build", f"fused spatial wgmma kernels (C = 320): {SPATIAL_WGMMA_KERNELS[0]} "
+        f"{plan['ctx_smem_bytes']} B, {SPATIAL_WGMMA_KERNELS[1]} {plan['front_smem_bytes']} B, "
+        f"{SPATIAL_WGMMA_KERNELS[2]} {plan['block_smem_bytes']} B dynamic shared, "
+        f"{plan['threads']} threads; plan {plan}")
     say("build", f"{info['path']} in {info['seconds']:.1f}s (cached={info['cached']})")
+
+
+def _kernel_name(line):
+    """The name of a wgmma kernel (with ``<N>`` for a template argument) from
+    a ptxas "Compiling entry function '_ZN...'" line, else None. In the
+    mangled name the identifier follows its length in digits, and the wgmma
+    kernels' names hold no digit."""
+    import re
+
+    m = re.search(r"([a-z_]+_wgmma_kernel)(?:ILi(\d+)E)?", line)
+    if not m:
+        return None
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
 
 
 def _time_turns(torch, plain, kernel, iters=20):
@@ -649,6 +685,7 @@ def _spatial_kernel_checks(torch, dev):
     nothing)."""
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.models.blocks import SpatialTransformer
+    from videomv_tpu_torch.ops import fused_spatial as fs
     from videomv_tpu_torch.ops.fused_spatial import (
         fused_spatial_transformer, spatial_block_reference, spatial_params)
     from videomv_tpu_torch.training.checkpoints import init_weights
@@ -677,6 +714,11 @@ def _spatial_kernel_checks(torch, dev):
             torch.cuda.synchronize()
             if ops.launch_counts() != dict(_ZERO_COUNTS, fused_spatial=1):
                 fail("kernels", f"fused_spatial {(r, kv_len)}: counters {ops.launch_counts()}")
+            if not torch.equal(fused_spatial_transformer(x, ctx, params, heads), kern):
+                fail("kernels", f"fused_spatial {(r, kv_len)}: two launches differ")
+            served = fs.spatial_variant(r, s, c, kv_len, cc, heads, iff)
+            other = fs.VARIANT_MMA + fs.VARIANT_WGMMA - served
+            old = fs._launch(x, ctx, params, heads, variant=other).float()
             twin = spatial_block_reference(x, ctx, params, heads).float()
             if any(ops.launch_counts()[k] for k in ("flash_attention", "geglu_ffn")):
                 fail("kernels", "the fused block's twin launched a kernel")
@@ -684,29 +726,41 @@ def _spatial_kernel_checks(torch, dev):
             mod_counts = ops.launch_counts()
             k_err = (kern.float() - twin).abs().max().item()
             m_err = (module.float() - twin).abs().max().item()
+            o_err = (old - twin).abs().max().item()
             # through the module's own dispatch, flag on: the same bits
             ops.reset_launch_counts()
             with _FusedSpatialFlag(True):
                 via = mod(x4, ctx).permute(0, 2, 3, 1).reshape(r, s, c)
             same = torch.equal(via, kern) and ops.launch_counts()["fused_spatial"] == 1
             scale = twin.abs().max().item()
-            del twin, module, via
+            del twin, module, via, old
             ms, plain_ms = _time_turns(
                 torch, lambda: spatial_block_reference(x, ctx, params, heads),
                 lambda: fused_spatial_transformer(x, ctx, params, heads), iters=5)
             module_ms = _time_one(torch, module_path, iters=5)
-        ok = k_err <= 2 * m_err + KERNEL_EPS and same
+            # the other hand-written kernel on the same input, in turns with
+            # the serving one (served, other, other, served)
+            other_ms, served_ms = _time_turns(
+                torch, lambda: fs._launch(x, ctx, params, heads, variant=served),
+                lambda: fs._launch(x, ctx, params, heads, variant=other), iters=10)
+        ok = k_err <= 2 * m_err + KERNEL_EPS and o_err <= 2 * m_err + KERNEL_EPS and same
         bound_ms, bound_by = _spatial_bound(r, s, c, kv_len, cc, iff)
         runs.append(dict(shape=[r, s, c, kv_len], calls_per_request=calls,
                          calls_per_train_step=0, max_abs_err=k_err, module_err_vs_twin=m_err,
                          ms=ms, plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
-        say("kernels", f"fused_spatial x [{r}, {s}, {c}] ctx [{r}, {kv_len}, {cc}]: |k-twin(fp32)| "
-            f"{k_err:.3e}, bf16 module path |m-twin| {m_err:.3e} (bound 2x + {KERNEL_EPS:.0e}), "
+                         bound_by=bound_by, library_ms=None, variant=fs.VARIANT_NAMES[served],
+                         share_of_bound=bound_ms / ms, other_variant_ms=other_ms,
+                         other_variant_err=o_err, served_variant_ms_in_turns=served_ms))
+        say("kernels", f"fused_spatial x [{r}, {s}, {c}] ctx [{r}, {kv_len}, {cc}] "
+            f"({fs.VARIANT_NAMES[served]} kernel, {100 * bound_ms / ms:.1f}% of its bound): "
+            f"|k-twin(fp32)| {k_err:.3e}, the {fs.VARIANT_NAMES[other]} kernel's {o_err:.3e}, "
+            f"bf16 module path |m-twin| {m_err:.3e} (bound 2x + {KERNEL_EPS:.0e}), "
             f"max|twin| {scale:.3e}, module dispatch bit-identical {same}; kernel {ms:.4f} ms "
             f"plain twin (fp32) {plain_ms:.4f} ms module path (kernels 1 + 2 + PyTorch ops, "
             f"launches {mod_counts['flash_attention']} + {mod_counts['geglu_ffn']}) "
-            f"{module_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
+            f"{module_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); in turns with the other "
+            f"hand-written kernel: serving {served_ms:.4f} ms, other ({fs.VARIANT_NAMES[other]}) "
+            f"{other_ms:.4f} ms {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"fused_spatial {(r, kv_len)} outside its error bound")
         del x4, x, ctx, kern
@@ -756,16 +810,63 @@ def phase_ffn_times(torch, defines):
     say("ffn_times", f"built with {defines or 'no switch'}: " + "; ".join(times))
 
 
-def phase_ffn_ablation():
-    for defines in FFN_ABLATIONS:
-        cmd = [sys.executable, os.path.abspath(__file__), "--phases", "ffn_times"]
+def phase_spatial_times(torch, defines):
+    """CUDA-event ms of kernel 5 at the served I2V shape (48 rows, context
+    145), built with ``defines``, and each of its __global__s' device time
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from videomv_tpu_torch.models.blocks import SpatialTransformer
+    from videomv_tpu_torch.ops.fused_spatial import fused_spatial_transformer, spatial_params
+    from videomv_tpu_torch.training.checkpoints import init_weights
+
+    dev = torch.device("cuda", 0)
+    s, c, heads, cc, r, kv_len = SPATIAL_S, SPATIAL_C, SPATIAL_HEADS, SPATIAL_CC, 48, 145
+    mod = init_weights(SpatialTransformer(c, heads, 64, depth=1, context_dim=cc), seed=5,
+                       zero_init=False).to(device=dev, dtype=torch.bfloat16).eval()
+    params = spatial_params(mod.requires_grad_(False), vector_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((r, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    ctx = torch.randn((r, kv_len, cc), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        ms = _time_one(torch, lambda: fused_spatial_transformer(x, ctx, params, heads))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fused_spatial_transformer(x, ctx, params, heads)
+            torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in ("gn_stats",) + SPATIAL_WGMMA_KERNELS if k in e.name), e.name)
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 5e3
+    say("spatial_times", f"built with {defines or 'no switch'}: x [{r}, {s}, {c}] ctx [{r}, "
+        f"{kv_len}, {cc}] {ms:.4f} ms; by kernel (ms) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
+
+
+def _ablation(kind, variants):
+    """One child process per build of the kernels with the switches named in
+    each of ``variants``; the children build all at once, then time in turn."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--phases", f"{kind}_times"]
+    builds = [subprocess.Popen(cmd + ["--build-only"] + (["--define", d] if d else []),
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for d in variants]
+    for d, b in zip(variants, builds):
+        out = b.communicate(timeout=900)[0]
+        if b.returncode != 0:
+            fail(f"{kind}_ablation", f"{d}: build exit {b.returncode}\n{out[-2000:]}")
+    for defines in variants:
         out = subprocess.run(cmd + (["--define", defines] if defines else []),
                              capture_output=True, text=True, timeout=600)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[ffn_times]")]
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith(f"[{kind}_times]")]
         if out.returncode != 0 or not lines:
-            fail("ffn_ablation", f"{defines}: exit {out.returncode}\n{out.stdout[-2000:]}"
+            fail(f"{kind}_ablation", f"{defines}: exit {out.returncode}\n{out.stdout[-2000:]}"
                  f"\n{out.stderr[-2000:]}")
         print(lines[-1], flush=True)
+
+
+def phase_ffn_ablation():
+    _ablation("ffn", FFN_ABLATIONS)
 
 
 def phase_kernels(torch, only=None):
@@ -934,6 +1035,8 @@ def main(argv=None):
                    help="comma-separated kernel names: the kernels phase checks these alone")
     p.add_argument("--define", default="",
                    help="comma-separated macros passed to nvcc as -D (the ablation switches)")
+    p.add_argument("--build-only", action="store_true",
+                   help="with an ablation's *_times phase: build the kernels and stop")
     args = p.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
     unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
@@ -947,13 +1050,21 @@ def main(argv=None):
         from videomv_tpu_torch.ops import _build
 
         _build.NVCC_FLAGS.extend("-D" + d for d in args.define.split(",") if d)
-    if "ffn_times" in phases:  # a child of the ablation: nothing else runs
-        if not torch.cuda.is_available():
-            fail("ffn_times", "needs a CUDA device")
-        return phase_ffn_times(torch, args.define)
+    for kind, times in (("ffn", phase_ffn_times), ("spatial", phase_spatial_times)):
+        if f"{kind}_times" in phases:  # a child of the ablation: nothing else runs
+            if args.build_only:
+                from videomv_tpu_torch.ops import _build
+
+                _build.load_library()
+                return None
+            if not torch.cuda.is_available():
+                fail(f"{kind}_times", "needs a CUDA device")
+            return times(torch, args.define)
     smi = phase_env(torch)
     if "ffn_ablation" in phases:
         phase_ffn_ablation()
+    if "spatial_ablation" in phases:
+        _ablation("spatial", SPATIAL_ABLATIONS)
     if "build" in phases or "kernels" in phases:
         phase_build()
     only = [s for s in args.kernels.split(",") if s] or None
@@ -1275,18 +1386,22 @@ def phase_refine(torch):
         fail("refine", f"relative L2 error {rms:.3e} above {REFINE_L2_TOL}")
 
 
-def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None):
+def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None, want=None,
+           fused_by_shape=None):
     """One generate() per prompt (the first is warm-up), each with the
     launch counters reset just before it and read just after; ``by_shape``
-    is what the attention and FFN counters must read split by shape."""
+    is what the attention and FFN counters must read split by shape,
+    ``fused_by_shape`` the fused block's (none unless its switch is on).
+    Returns the outputs, the last request's counts and its latency (s)."""
     import numpy as np
 
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops.gaussian_splat import pair_capacity
 
     cap = pair_capacity(SPLAT_GAUSSIANS, SPLAT_SIZE)
-    want = REFINED_LAUNCHES if refine else PLAIN_LAUNCHES
-    outs, counts = [], {}
+    if want is None:
+        want = REFINED_LAUNCHES if refine else PLAIN_LAUNCHES
+    outs, counts, dt = [], {}, None
     for i, prompt in enumerate(prompts):
         pair_log.renders.clear()
         torch.cuda.synchronize()
@@ -1311,8 +1426,11 @@ def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None):
             f"launches {counts}{pairs}")
         if counts != want:
             fail("slice", f"{tag}: expected launches {want}, got {counts}")
-        if by_shape is not None and shapes != dict(by_shape, fused_spatial={}):
+        if by_shape is not None and shapes != dict(by_shape, fused_spatial=fused_by_shape or {}):
             fail("slice", f"{tag}: expected launches by shape {by_shape}, got {shapes}")
+        if shapes["fused_spatial"] != (fused_by_shape or {}):
+            fail("slice", f"{tag}: expected fused launches by shape {fused_by_shape or {}}, got "
+                 f"{shapes['fused_spatial']}")
         if fr.dtype != np.uint8 or fr.shape != (24, 256, 256, 3):
             fail("slice", f"frames {fr.dtype} {fr.shape}, expected uint8 (24, 256, 256, 3)")
         if not np.isfinite(out["latents"]).all():
@@ -1320,7 +1438,7 @@ def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None):
         outs.append(out)
     if len(outs) > 1 and np.array_equal(outs[0]["frames"], outs[1]["frames"]):
         fail("slice", f"{tag}: two different prompts gave identical views")
-    return outs, counts
+    return outs, counts, dt
 
 
 def phase_slice(torch):
@@ -1343,10 +1461,17 @@ def phase_slice(torch):
         fail("slice", "configs/t2v_infer.yaml no longer ships gs_refine_uncond: shared")
 
     with _PairLog() as pair_log:
-        plain, counts_plain = _serve(torch, pipe, prompts, False, "plain", pair_log,
-                                     PLAIN_BY_SHAPE)
-        refined, counts = _serve(torch, pipe, prompts, True, "refined", pair_log,
-                                 {"flash_attention": ATTN_SHAPES, "geglu_ffn": FFN_SHAPES})
+        plain, counts_plain, plain_s = _serve(torch, pipe, prompts, False, "plain", pair_log,
+                                              PLAIN_BY_SHAPE)
+        refined, counts, _ = _serve(torch, pipe, prompts, True, "refined", pair_log,
+                                    {"flash_attention": ATTN_SHAPES, "geglu_ffn": FFN_SHAPES})
+        # the fused block's switch serves T2V too: its 32² blocks over the
+        # 77-token text context
+        with _FusedSpatialFlag(True):
+            _, _, on_s = _serve(torch, pipe, prompts, False, "plain, fused block on", pair_log,
+                                want=T2V_PLAIN_ON, fused_by_shape=T2V_FUSED_BY_SHAPE)
+        say("slice", f"plain T2V request, timed: fused-block switch off {plain_s:.3f} s, on "
+            f"{on_s:.3f} s")
         for i in range(len(prompts)):
             if np.array_equal(plain[i]["frames"], refined[i]["frames"]):
                 fail("slice", f"prompt {i}: the refine left the sample unchanged")
@@ -1574,8 +1699,8 @@ def phase_i2v(torch):
 
 
 _KERNEL_CLASSES = (  # (class, name substrings), first match wins
-    ("fused_spatial (ours)", ("spatial_block_kernel", "spatial_kv_kernel", "ctx_kv_kernel",
-                              "gn_stats_kernel")),
+    ("fused_spatial (ours)", SPATIAL_WGMMA_KERNELS + (
+        "spatial_block_kernel", "spatial_kv_kernel", "ctx_kv_kernel", "gn_stats_kernel")),
     ("flash_attention (ours)", ("flash_attn_fwd_kernel", "flash_attn_wgmma_kernel")),
     ("geglu_ffn (ours)", ("geglu_ffn_kernel", "geglu_ffn_wgmma_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),

@@ -6,7 +6,9 @@ twin and against autograd of the forward twin), the wrappers' input checks,
 the backward of the attention and FFN wrappers, the module dispatch, and the
 fused spatial-transformer block (other widths and contexts than the served
 ones, its input checks, its backward, its dispatch under the environment
-switch). Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
+switch; the wgmma kernel at the served width against its twin at ragged
+contexts and at 1, 24 and 48 rows, with large logits, and the choice of
+kernel by shape). Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
 
     python -m pytest tests/test_torch_gpu_kernels.py -m gpu --noconftest -q
@@ -432,6 +434,93 @@ def test_fused_spatial_matches_its_fp32_twin(cuda, r, s, c, heads, kv_len, cc):
     assert ops.launch_counts()["fused_spatial"] == 1  # no flag: the module path
     k_err = (kern.float() - twin).abs().max().item()
     m_err = (module.float() - twin).abs().max().item()
+    assert torch.isfinite(kern.float()).all()
+    assert k_err <= 2 * m_err + EPS, (k_err, m_err)
+
+
+def _spatial_errors(mod, params, x, ctx, heads, variant=None):
+    """The kernel's and the bf16 module path's max error against the fp32
+    twin, and the kernel's output."""
+    from videomv_tpu_torch.ops import fused_spatial as fs
+
+    r, s, c = x.shape
+    with torch.no_grad():
+        kern = fs._launch(x, ctx, params, heads, variant=variant)
+        torch.cuda.synchronize()
+        twin = fs.spatial_block_reference(x, ctx, params, heads).float()
+        module = mod(x.transpose(1, 2).reshape(r, c, s, 1).contiguous(), ctx)
+        module = module.reshape(r, c, s).transpose(1, 2)
+    k_err = (kern.float() - twin).abs().max().item()
+    m_err = (module.float() - twin).abs().max().item()
+    return k_err, m_err, kern
+
+
+# the wgmma kernel at the served width (C 320, 5 heads, Cc 1024): contexts of
+# one key, under one 128-key tile, one tile exactly, one key past it, the I2V
+# context; 1, 24 and 48 rows; a sequence of an odd number of 128-key tiles
+@pytest.mark.parametrize("r,s,kv_len", [
+    (1, 1024, 1), (1, 1024, 77), (1, 1024, 128), (1, 1024, 129), (1, 1024, 145),
+    (24, 1024, 145), (48, 1024, 145), (2, 640, 77)])
+def test_fused_spatial_wgmma_matches_its_fp32_twin(cuda, r, s, kv_len):
+    from videomv_tpu_torch.ops import fused_spatial as fs
+
+    mod, params = _spatial_block(cuda, 320, 5, 1024)
+    assert fs.spatial_variant(r, s, 320, kv_len, 1024, 5, 1280) == fs.VARIANT_WGMMA
+    gen = torch.Generator(device=cuda).manual_seed(r + s + kv_len)
+    x = _randn(gen, cuda, r, s, 320)
+    ctx = _randn(gen, cuda, r, kv_len, 1024)
+    ops.reset_launch_counts()
+    k_err, m_err, kern = _spatial_errors(mod, params, x, ctx, 5)
+    assert ops.launch_counts()["fused_spatial"] == 1
+    assert torch.isfinite(kern.float()).all()
+    assert k_err <= 2 * m_err + EPS, (k_err, m_err)
+    with torch.no_grad():  # one writer per element: two launches bit-equal
+        assert torch.equal(fs._launch(x, ctx, params, 5), kern)
+
+
+def test_fused_spatial_variant_split_by_shape(cuda):
+    """The served width takes the wgmma kernel and the mma.sync kernel takes
+    it too (both right); a shape the wgmma kernel does not take is refused by
+    its C entry, never rerouted."""
+    from videomv_tpu_torch.ops import fused_spatial as fs
+
+    mod, params = _spatial_block(cuda, 320, 5, 1024)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, ctx = _randn(gen, cuda, 2, 1024, 320), _randn(gen, cuda, 2, 145, 1024)
+    k_err, m_err, _ = _spatial_errors(mod, params, x, ctx, 5, variant=fs.VARIANT_MMA)
+    assert k_err <= 2 * m_err + EPS, (k_err, m_err)
+    _, params128 = _spatial_block(cuda, 128, 2, 96)
+    x128, ctx96 = _randn(gen, cuda, 2, 512, 128), _randn(gen, cuda, 2, 7, 96)
+    assert fs.spatial_variant(2, 512, 128, 7, 96, 2, 512) == fs.VARIANT_MMA
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        fs._launch(x128, ctx96, params128, 2, variant=fs.VARIANT_WGMMA)
+    _, params1536 = _spatial_block(cuda, 320, 5, 1536)
+    ctx1536 = _randn(gen, cuda, 2, 7, 1536)
+    assert fs.spatial_variant(2, 1024, 320, 7, 1536, 5, 1280) == fs.VARIANT_MMA
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        fs._launch(x, ctx1536, params1536, 5, variant=fs.VARIANT_WGMMA)
+
+
+@pytest.mark.parametrize("kv_len", [145, 77])
+def test_fused_spatial_wgmma_large_logits(cuda, kv_len):
+    """Query and key rows scaled up so that logits reach the hundreds: the
+    online softmax of both attentions and the merge of the split head must
+    neither overflow nor lose a maximum that arrives in a later tile."""
+    mod, params = _spatial_block(cuda, 320, 5, 1024)
+    params = dict(params)
+    for n in ("wq1", "wk1", "wq2", "wk2"):
+        params[n] = (params[n].float() * 4).bfloat16()
+    with torch.no_grad():  # the module path with the same weights
+        attn1, attn2 = mod.transformer_blocks[0].attn1, mod.transformer_blocks[0].attn2
+        for lin, n in ((attn1.to_q, "wq1"), (attn1.to_k, "wk1"), (attn2.to_q, "wq2"),
+                       (attn2.to_k, "wk2")):
+            lin.weight.copy_(params[n])
+    gen = torch.Generator(device=cuda).manual_seed(kv_len)
+    x = _randn(gen, cuda, 2, 1024, 320)
+    ctx = _randn(gen, cuda, 2, kv_len, 1024)
+    x[:, -3] *= 8   # a dominant key late in the self-attention's last tile
+    ctx[:, -1] *= 8
+    k_err, m_err, kern = _spatial_errors(mod, params, x, ctx, 5)
     assert torch.isfinite(kern.float()).all()
     assert k_err <= 2 * m_err + EPS, (k_err, m_err)
 

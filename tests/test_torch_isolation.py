@@ -117,10 +117,11 @@ def test_every_cuda_source_is_built_and_bound():
         assert os.path.exists(os.path.join(_build.CSRC_DIR, hdr))
         for u in users:
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
-    # the wgmma kernels of attention and the FFN have their own helpers
+    # the wgmma kernels of attention, the FFN and the fused block share their
+    # Hopper helpers; the splat kernels use none
     for hdr in ("hopper_utils.cuh", "wgmma_ops.cuh"):
-        for u in ("flash_attention.cu", "fused_ffn.cu"):
+        for u in ("flash_attention.cu", "fused_ffn.cu", "fused_spatial.cu"):
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
-        assert f'#include "{hdr}"' not in open(os.path.join(_build.CSRC_DIR,
-                                                            "fused_spatial.cu")).read()
+        for u in ("splat_composite.cu", "splat_composite_bwd.cu"):
+            assert f'#include "{hdr}"' not in open(os.path.join(_build.CSRC_DIR, u)).read()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

@@ -30,8 +30,8 @@ from ..ops.attention import dot_product_attention
 from ..ops.fused_ffn import ffn_eligible, geglu_ffn
 from ..ops.fused_spatial import (
     fused_spatial_transformer,
+    kernel_params,
     spatial_fused_eligible,
-    spatial_params,
 )
 
 __all__ = [
@@ -193,7 +193,7 @@ class SpatialTransformer(nn.Module):
                                            x.dtype, x.is_cuda)):
             out = fused_spatial_transformer(
                 x.permute(0, 2, 3, 1).contiguous().view(bf, hh * ww, c), context.contiguous(),
-                spatial_params(self, vector_dtype=torch.float32), self.n_heads)
+                kernel_params(self), self.n_heads)
             return out.reshape(bf, hh, ww, c).permute(0, 3, 1, 2)
         h = self.norm(x).permute(0, 2, 3, 1).reshape(bf, hh * ww, c)
         h = self.proj_in(h)

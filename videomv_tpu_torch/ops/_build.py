@@ -43,8 +43,9 @@ _SIGNATURES = {
     "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
     "vmv_splat_composite_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p],
     "vmv_splat_composite_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
-    # a host array of the device pointers, then R, S, C, L, Cc, heads, inner
-    "vmv_fused_spatial_fwd": [_c_void_p] + [_c_int] * 7 + [_c_void_p],
+    # a host array of the device pointers, then R, S, C, L, Cc, heads, inner,
+    # variant
+    "vmv_fused_spatial_fwd": [_c_void_p] + [_c_int] * 8 + [_c_void_p],
 }
 
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")

@@ -18,6 +18,12 @@ UNet's 32² / C = 320 stage only (``C == heads·64 <= 384``, ``S % 512 == 0``,
 bf16 on a CUDA device). The JAX package's VMEM-sizing switches (rows per grid
 cell, bf16 residuals) have no counterpart: the kernel keeps fp32 residuals.
 
+Two kernels sit behind the one entry point, chosen by shape
+(``spatial_variant``): the wgmma kernel designed for Hopper at the served
+width (C = 320, 5 heads, context width 1024), the first port's mma.sync kernel for every other shape the wrapper
+takes. ``spatial_plan`` and ``spatial_tensor_maps`` describe the wgmma
+kernel's tiling and TMA maps as ``csrc/fused_spatial.cu`` lays them out.
+
 ``LAUNCHES`` counts wrapper calls that launched the kernel (one call runs its
 four ``__global__`` phases on one stream and counts once);
 ``LAUNCHES_BY_SHAPE`` splits the count by ``(R, S, C, L)``.
@@ -42,10 +48,17 @@ __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_SHAPE",
     "PARAM_NAMES",
+    "VARIANT_MMA",
+    "VARIANT_NAMES",
+    "VARIANT_WGMMA",
     "fused_spatial_transformer",
+    "kernel_params",
     "spatial_block_reference",
     "spatial_fused_eligible",
     "spatial_params",
+    "spatial_plan",
+    "spatial_tensor_maps",
+    "spatial_variant",
 ]
 
 LAUNCHES = 0
@@ -66,6 +79,76 @@ PARAM_NAMES = (
     "wpo", "bpo",
 )
 _MATRICES = frozenset(n for n in PARAM_NAMES if n.startswith("w"))
+_VECTORS = tuple(n for n in PARAM_NAMES if n not in _MATRICES)
+
+VARIANT_MMA, VARIANT_WGMMA = 0, 1
+VARIANT_NAMES = {VARIANT_MMA: "mma.sync", VARIANT_WGMMA: "wgmma"}
+WGMMA_C, WGMMA_CC = 320, 1024
+MAX_DYNAMIC_SMEM = 232448  # bytes one block may ask for on sm_90
+
+
+def spatial_variant(r: int, s: int, c: int, kv_len: int, cc: int, n_heads: int,
+                    inner_ff: int) -> int:
+    """Which kernel serves x [r, s, c] over a context [r, kv_len, cc]."""
+    if c == WGMMA_C and n_heads == c // D_HEAD and cc == WGMMA_CC:
+        return VARIANT_WGMMA
+    return VARIANT_MMA
+
+
+def spatial_plan(c: int = WGMMA_C, cc: int = WGMMA_CC) -> dict:
+    """The wgmma kernel's tiling, as csrc/fused_spatial.cu lays it out (sizes
+    in bytes). A block owns 64 tokens and is two consumer warpgroups (256
+    threads, no producer: the last warp done with a stage refills it); each
+    warpgroup computes 160 of the 320 output columns of every product as two
+    m64n80 wgmmas. Phase C's shared memory: the fp32 residual [64, C + 8], the
+    bf16 A operand [64, C] as swizzled [64 x 64] tiles (GroupNorm / LN
+    outputs, Q, the head outputs, r3), a ring of weight stages (two [80 x 64]
+    boxes each), two GEGLU g tiles, the barriers; an attention's K/V stages
+    (K and V of 128 keys) alias the ring and the g tiles. Phase B has no g
+    tiles; phase A holds a context tile [64, cc] and the ring."""
+    if c != WGMMA_C or cc != WGMMA_CC:
+        raise ValueError(f"the wgmma kernel is built for C = {WGMMA_C}, Cc = {WGMMA_CC}; got "
+                         f"C = {c}, Cc = {cc}")
+    rows, tile = 64, 64 * 128
+    residual = rows * (c + 8) * 4
+    operand = (c // 64) * tile
+    stage, stages = 2 * 80 * 128, 4
+    ring = stage * stages
+    g_tiles = 2 * tile
+    kv_stage, kv_stages = 2 * 128 * 128, 3
+    barriers = 256
+    front = 1024 + residual + operand + ring + barriers
+    return dict(rows=rows, threads=256, warpgroups=2, wgmma_n=80, columns_per_warpgroup=160,
+                residual_bytes=residual, operand_bytes=operand, stage_bytes=stage,
+                stages=stages, g_bytes=g_tiles, keys=128, kv_stage_bytes=kv_stage,
+                kv_stages=kv_stages, barrier_bytes=barriers, ffn_chunk=64, ffn_lin_cols=32,
+                block_smem_bytes=front + g_tiles, front_smem_bytes=front,
+                ctx_smem_bytes=1024 + (cc // 64) * tile + ring + barriers,
+                # registers a thread holds live at most: the product's two
+                # accumulators (80) + the FFN's lin / gate (32); in an
+                # attention the logits (64), O (32) and P (32)
+                accumulator_registers=max(80 + 32, 64 + 32 + 32), register_cap=255)
+
+
+def spatial_tensor_maps(r: int, s: int, c: int, kv_len: int, cc: int, inner_ff: int) -> dict:
+    """The TMA tensor maps of one wgmma launch, innermost dimension first
+    (elements; strides in bytes of the outer dimensions; the box is one
+    load): the weights in nn.Linear layout [out, in] (K-major B operands as
+    they lie), the context [R·L, Cc], and K/V of both attentions read in place
+    as [R, tokens, heads, 64] (K1/V1 [R, S, C], K2/V2 [R·L, C])."""
+    heads = c // D_HEAD
+    box80, box_lg = (64, 80), (64, 32)
+    maps = {n: dict(dims=(c, c), strides_bytes=(2 * c,), box=box80)
+            for n in ("win", "wq1", "wk1", "wv1", "wo1", "wq2", "wo2", "wpo")}
+    for n in ("wk2", "wv2"):
+        maps[n] = dict(dims=(cc, c), strides_bytes=(2 * cc,), box=box80)
+    maps["w1"] = dict(dims=(c, 2 * inner_ff), strides_bytes=(2 * c,), box=box_lg)
+    maps["w2"] = dict(dims=(inner_ff, c), strides_bytes=(2 * inner_ff,), box=box80)
+    maps["ctx"] = dict(dims=(cc, r * kv_len), strides_bytes=(2 * cc,), box=(64, 64))
+    for n, tokens in (("k1", s), ("v1", s), ("k2", kv_len), ("v2", kv_len)):
+        maps[n] = dict(dims=(D_HEAD, heads, tokens, r),
+                       strides_bytes=(2 * D_HEAD, 2 * c, 2 * tokens * c), box=(64, 1, 128, 1))
+    return maps
 
 
 def spatial_params(module, vector_dtype: Optional[torch.dtype] = None
@@ -90,6 +173,22 @@ def spatial_params(module, vector_dtype: Optional[torch.dtype] = None
             p[f"wo{i}"], p[f"bo{i}"] = attn.to_out[0].weight, attn.to_out[0].bias
     if vector_dtype is not None:
         p = {k: (v if k in _MATRICES else v.to(vector_dtype)) for k, v in p.items()}
+    return p
+
+
+def kernel_params(module) -> Dict[str, torch.Tensor]:
+    """``spatial_params(module, torch.float32)`` without a cast per call: the
+    fp32 copies of the norm scales and biases are kept on the module and made
+    again only when a parameter's storage or version changes
+    (``load_state_dict``, an optimizer step, ``.to()``); the matrices are the
+    module's own tensors."""
+    p = spatial_params(module)
+    key = tuple((p[n].data_ptr(), p[n]._version, p[n].dtype, p[n].device) for n in _VECTORS)
+    kept = module.__dict__.get("_fused_spatial_vectors")
+    if kept is None or kept[0] != key:
+        kept = (key, {n: p[n].detach().to(torch.float32) for n in _VECTORS})
+        module.__dict__["_fused_spatial_vectors"] = kept
+    p.update(kept[1])
     return p
 
 
@@ -191,13 +290,17 @@ def _check_names(params) -> None:
             f"unexpected {sorted(set(params) - set(PARAM_NAMES))}")
 
 
-def _launch(x, ctx, params, n_heads):
+def _launch(x, ctx, params, n_heads, variant=None):
+    """One launch; ``variant`` (for measurements that time both kernels on one
+    input) overrides the choice by shape and must take it."""
     global LAUNCHES
     _check_names(params)
     _check_cuda_inputs(x, ctx, params, n_heads)
     r, s, c = x.shape
     kv_len, cc = ctx.shape[1], ctx.shape[2]
     iff = params["w2"].shape[1]
+    if variant is None:
+        variant = spatial_variant(r, s, c, kv_len, cc, n_heads, iff)
     dev = x.device
     out = torch.empty_like(x)
     # scratch of the phase split: GroupNorm moments, self-attention K/V of
@@ -209,7 +312,7 @@ def _launch(x, ctx, params, n_heads):
     tensors = [x, ctx, out, stats, k1, v1, k2, v2] + [params[n] for n in PARAM_NAMES]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     lib = _build.load_library()
-    err = lib.vmv_fused_spatial_fwd(ptrs, r, s, c, kv_len, cc, n_heads, iff,
+    err = lib.vmv_fused_spatial_fwd(ptrs, r, s, c, kv_len, cc, n_heads, iff, variant,
                                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vmv_fused_spatial_fwd")
     LAUNCHES += 1
