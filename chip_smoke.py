@@ -104,16 +104,20 @@ KERNELS = {
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
-# fp32 operations of the two splat kernels, counted from what this run's data
-# needs. At every (pixel, pair) point of a tile's segment alpha is rebuilt to
-# find whether the pair is alive there (power <= 0 and alpha >= 1/255): dx, dy
-# (2), the quadratic form (5), power (4), exp (1), opacity x exp (1), the 0.99
-# clamp (1), the two cuts (2). Only at an alive point does the composite blend
-# (alpha x T, four accumulating products, T x (1 - alpha): 11), and only there
-# does the backward form its gradient terms (gC.c 7, the running prefix 2,
+# fp32 operations of the two splat kernels, counted as the least work any
+# implementation must do on this run's data. Only at an alive (pixel, pair)
+# point (power <= 0 and alpha >= 1/255) does a pair change the output, and
+# there alpha is rebuilt (dx, dy 2, the quadratic form 5, power 4, exp 1,
+# opacity x exp 1, the 0.99 clamp 1, the two cuts 2: SPLAT_POINT_OPS) and
+# blended (alpha x T, four accumulating products, T x (1 - alpha): 11) or, in
+# the backward, its gradient terms formed (gC.c 7, the running prefix 2,
 # max(1 - alpha, 0.01) 2, d alpha 4, the clamp mask 1, d power and d opacity
-# 2, the five geometry terms 17, gC x w 4, T x (1 - alpha) 2, and the w of the
-# forward 1: 42) and add each of its 10 values into the sum over pixels (10).
+# 2, the five geometry terms 17, gC x w 4, T x (1 - alpha) 2, and the w of
+# the forward 1: 42) and its 10 values added into the sums over pixels (10).
+# A point that is not alive needs no operation: a kernel can cull it without
+# evaluating it, as the culled forward does for most of them. What the twin
+# does (alpha rebuilt at every point of a segment, SPLAT_POINT_OPS each) is
+# printed beside the bound as the segment-walk count.
 SPLAT_POINT_OPS = 16
 SPLAT_FWD_ALIVE_OPS = 11
 SPLAT_BWD_ALIVE_OPS = 52
@@ -231,6 +235,11 @@ SPATIAL_FLAG = "VIDEOMV_ENABLE_FUSED_SPATIAL"
 # the three __global__s of kernel 5's wgmma variant (phases A, B, C)
 SPATIAL_WGMMA_KERNELS = ("spatial_ctx_kv_wgmma_kernel", "spatial_front_kv_wgmma_kernel",
                          "spatial_block_wgmma_kernel")
+# kernel 3's two variants, each for both payloads: the build phase reports
+# their registers, shared memory and spills, and fails on a spill
+SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
+                                                "splat_composite_kernel")
+                          for p in ("packed", "fp32"))
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
@@ -304,9 +313,9 @@ def phase_build():
     for ln in ptxas:
         print(f"  {ln}", flush=True)
     # the wgmma kernels (attention, the FFN, the fused spatial block's three
-    # phases): registers and spills from ptxas, shared memory from the
-    # wrappers' plans; a spill or a serialised wgmma pipeline in them fails
-    # the build phase
+    # phases) and the splat composite's forward kernels: registers and spills
+    # from ptxas, shared memory from ptxas (splat) or the wrappers' plans; a
+    # spill or a serialised wgmma pipeline in them fails the build phase
     from videomv_tpu_torch.ops import flash_attention as fa
     from videomv_tpu_torch.ops import fused_ffn as ff
     from videomv_tpu_torch.ops import fused_spatial as fs
@@ -325,9 +334,9 @@ def phase_build():
         if "0 bytes spill stores, 0 bytes spill loads" not in spill:
             bad.append(f"{name} spills: {spill}")
     want = ({"flash_attn_wgmma_kernel"} | {f"geglu_ffn_wgmma_kernel<{c}>" for c in ff.WGMMA_WIDTHS}
-            | set(SPATIAL_WGMMA_KERNELS))
+            | set(SPATIAL_WGMMA_KERNELS) | set(SPLAT_FWD_KERNELS))
     if set(found) != want:
-        bad.append(f"expected the wgmma kernels {sorted(want)} in the log, found {sorted(found)}")
+        bad.append(f"expected the kernels {sorted(want)} in the log, found {sorted(found)}")
     if bad and not info["cached"]:
         fail("build", "; ".join(bad))
     say("build", f"flash_attn_wgmma_kernel: {fa.WGMMA_SMEM_BYTES} B dynamic shared, 384 threads "
@@ -344,12 +353,16 @@ def phase_build():
 
 
 def _kernel_name(line):
-    """The name of a wgmma kernel (with ``<N>`` for a template argument) from
-    a ptxas "Compiling entry function '_ZN...'" line, else None. In the
-    mangled name the identifier follows its length in digits, and the wgmma
-    kernels' names hold no digit."""
+    """The name of a wgmma kernel (with ``<N>`` for a template argument) or
+    of a splat composite forward kernel (``<packed>`` or ``<fp32>`` for its
+    payload) from a ptxas "Compiling entry function '_ZN...'" line, else
+    None. In the mangled name the identifier follows its length in digits,
+    and these kernels' names hold no digit."""
     import re
 
+    m = re.search(r"(splat_composite(?:_culled)?_kernel)ILb([01])E", line)
+    if m:
+        return m.group(1) + ("<packed>" if m.group(2) == "1" else "<fp32>")
     m = re.search(r"([a-z_]+_wgmma_kernel)(?:ILi(\d+)E)?", line)
     if not m:
         return None
@@ -394,18 +407,27 @@ def _ffn_bound(t, c, inner):
     return _bound(n_bytes, 6 * t * c * inner, PEAK_BF16_FLOPS)
 
 
-def _splat_alive_points(torch, payload, tile_start, tile_count, nts, block=1 << 18):
-    """How many (pixel, pair) points of this binned render call are alive
-    (power <= 0 and alpha >= 1/255, the twin's ``~dead``), counted from the
-    payload and the segments in one pass: each in-segment pair against the
-    256 pixels of its tile. The in-segment points are 256 x tile_count.sum()."""
+def _splat_stats(torch, payload, tile_start, tile_count, nts, block=1 << 17):
+    """What a binned render call's composite work depends on: the pairs per
+    (view, tile) (mean, p50, p99, max); the (pixel, pair) points of the
+    segments and how many are alive (power <= 0 and alpha >= 1/255, the
+    twin's ``~dead``, rounded op by op as the kernels do); and the share of
+    (warp block, pair) combinations that hold an alive point, for the
+    per-tile kernel's warps (two rows of 16 pixels) and the culled kernel's
+    (8 x 4 pixels), beside the share the culled kernel's masks keep
+    (``splat.cull_masks``) and the alive points the masks miss (must be 0).
+    Each in-segment pair is taken against the 256 pixels of its tile."""
     from videomv_tpu_torch.ops import splat
 
     R, rows, _ = payload.shape
     dev = payload.device
+    counts = tile_count.reshape(-1).float()
+    p50, p99 = torch.quantile(counts, torch.tensor([0.5, 0.99], device=dev)).tolist()
+    masks = splat.cull_masks(payload, tile_start, tile_count, nts)
+    bit = torch.arange(8, device=dev)
     pix = torch.arange(splat.TILE * splat.TILE, device=dev)
     ox, oy = (pix % splat.TILE).float(), (pix // splat.TILE).float()
-    alive = 0
+    alive = rows2 = blocks = kept = missed = 0
     for r in range(R):
         # segments lie back to back from pair 0 in tile order
         ends = (tile_start[r] + tile_count[r]).long()
@@ -420,26 +442,59 @@ def _splat_alive_points(torch, payload, tile_start, tile_count, nts, block=1 << 
             power = (-0.5 * (d[2][:, None] * dx * dx + d[4][:, None] * dy * dy)
                      - d[3][:, None] * dx * dy)
             alpha = torch.clamp_max(op[:, None] * torch.exp(power), 0.99)
-            alive += int(((power <= 0.0) & (alpha >= 1.0 / 255.0)).sum())
-    return alive
+            al = (power <= 0.0) & (alpha >= 1.0 / 255.0)             # [m, 256]
+            alive += int(al.sum())
+            rows2 += int(al.view(-1, 8, 32).any(-1).sum())
+            # pixel (by·4 + ry)·16 + bx·8 + rx -> block by·2 + bx
+            blk = al.view(-1, 4, 4, 2, 8).any(4).any(2).reshape(-1, 8)
+            blocks += int(blk.sum())
+            keep = ((masks[r, a:a + idx.numel()].long()[:, None] >> bit) & 1).bool()
+            kept += int(keep.sum())
+            missed += int((blk & ~keep).sum())
+    live = int(tile_count.sum())
+    return dict(tiles=counts.numel(), pairs_per_tile_mean=counts.mean().item(),
+                pairs_per_tile_p50=p50, pairs_per_tile_p99=p99,
+                pairs_per_tile_max=int(counts.max()), live_pairs=live, points=256 * live,
+                alive_points=alive, alive_share=alive / max(256 * live, 1),
+                rows2_block_share=rows2 / max(8 * live, 1),
+                block8x4_share=blocks / max(8 * live, 1),
+                mask_kept_share=kept / max(8 * live, 1), mask_missed_alive_blocks=missed)
+
+
+def _say_splat_stats(phase, what, st):
+    say(phase, f"splat_stats {what}: pairs per (view, tile) over {st['tiles']} items mean "
+        f"{st['pairs_per_tile_mean']:.1f} p50 {st['pairs_per_tile_p50']:.0f} p99 "
+        f"{st['pairs_per_tile_p99']:.0f} max {st['pairs_per_tile_max']}; live pairs "
+        f"{st['live_pairs']}, alive (pixel, pair) points {st['alive_points']} of "
+        f"{st['points']} = {100 * st['alive_share']:.2f}%; (warp block, pair) combinations "
+        f"holding an alive point: 16x2 blocks {100 * st['rows2_block_share']:.2f}%, 8x4 "
+        f"blocks {100 * st['block8x4_share']:.2f}%; kept by the culled kernel's masks "
+        f"{100 * st['mask_kept_share']:.2f}%; alive blocks the masks miss "
+        f"{st['mask_missed_alive_blocks']}")
+    if st["mask_missed_alive_blocks"]:
+        fail(phase, f"splat culling masks miss alive points ({what})")
 
 
 def _splat_bound(views, rows, capacity, tiles, live_pairs, alive_points, backward=False):
-    """The composite reads each live pair's payload rows once, the tile
-    lists, and writes [views, tiles, 5, 256]; the backward reads the 10 live
-    rows and two such tile tensors and writes all of dpayload
-    [views, 16, capacity]. Operations follow this run's data: every point of
-    a segment rebuilds alpha, only the alive points blend or form gradients."""
+    """(bound_ms, bound_by, walk_ms). The least work (see SPLAT_POINT_OPS):
+    the composite reads the rows it needs of each live pair's payload once
+    (the 8 packed rows, or 10 of the 16 fp32 rows: the other 6 are zero
+    padding) and the tile lists and writes [views, tiles, 5, 256]; the
+    backward reads the 10 live rows and
+    two such tile tensors and writes all of dpayload [views, 16, capacity];
+    operations only at the alive points. walk_ms is the operations' time
+    under the segment-walk count (alpha rebuilt at every in-segment point),
+    the work the twin and the per-tile kernels do."""
     out_bytes = views * tiles * 5 * 256 * 4
     lists = 2 * views * tiles * 4
-    points = live_pairs * 256
+    alive_ops = SPLAT_BWD_ALIVE_OPS if backward else SPLAT_FWD_ALIVE_OPS
+    walk_ms = 1e3 * (live_pairs * 256 * SPLAT_POINT_OPS + alive_points * alive_ops) / PEAK_FP32_FLOPS
     if backward:
         n_bytes = live_pairs * 10 * 4 + lists + 2 * out_bytes + views * 16 * capacity * 4
-        return _bound(n_bytes, points * SPLAT_POINT_OPS + alive_points * SPLAT_BWD_ALIVE_OPS,
-                      PEAK_FP32_FLOPS)
-    return _bound(live_pairs * rows * 4 + lists + out_bytes,
-                  points * SPLAT_POINT_OPS + alive_points * SPLAT_FWD_ALIVE_OPS,
-                  PEAK_FP32_FLOPS)
+    else:
+        n_bytes = live_pairs * (8 if rows == 8 else 10) * 4 + lists + out_bytes
+    return (*_bound(n_bytes, alive_points * (SPLAT_POINT_OPS + alive_ops), PEAK_FP32_FLOPS),
+            walk_ms)
 
 
 def _time_one(torch, fn, iters=20):
@@ -478,11 +533,53 @@ def _synthetic_scene(torch, dev, size=SPLAT_SIZE, views=SPLAT_VIEWS):
             torch.from_numpy(cams["cam_view_proj"]).to(dev), st.tan_half_fov)
 
 
+def _splat_variants(torch, payload, ts, tc, nts, kern, phase, what):
+    """The served (culled) composite kernel against the per-tile kernel of
+    the first port on one binned render call: their outputs must be
+    bit-equal; CUDA-event times in turns (culled, per-tile, per-tile,
+    culled), and the culled kernel alone, in turns, on the heaviest-first
+    order made beforehand (``splat.heaviest_first``) and on index order: the
+    first against the served call gives what forming the order inside the
+    call costs, the second what the schedule gains."""
+    from videomv_tpu_torch.ops import splat
+
+    old = splat._composite_forward(payload, ts, tc, nts, variant=splat.VARIANT_PER_TILE)
+    torch.cuda.synchronize()
+    same = torch.equal(kern, old)
+    diff = (kern - old).abs().max().item()
+    other_ms, served_ms = _time_turns(
+        torch, lambda: splat.composite(payload, ts, tc, nts),
+        lambda: splat._composite_forward(payload, ts, tc, nts, variant=splat.VARIANT_PER_TILE),
+        iters=10)
+    # the schedule: the culled kernel alone on the heaviest-first order made
+    # beforehand, and on the items in index order
+    order = splat.heaviest_first(tc)
+    index = torch.arange(tc.numel(), dtype=torch.int32, device=tc.device)
+    same = same and all(torch.equal(splat._composite_forward(payload, ts, tc, nts, order=o), kern)
+                        for o in (order, index))
+    index_ms, sorted_ms = _time_turns(
+        torch, lambda: splat._composite_forward(payload, ts, tc, nts, order=order),
+        lambda: splat._composite_forward(payload, ts, tc, nts, order=index), iters=10)
+    say(phase, f"splat_composite {what}, in turns: culled {served_ms:.4f} ms, per-tile "
+        f"{other_ms:.4f} ms ({other_ms / served_ms:.2f}x); the culled kernel alone, in "
+        f"turns, on the heaviest-first order made beforehand {sorted_ms:.4f} ms and on "
+        f"index order {index_ms:.4f} ms; outputs "
+        f"bit-equal {same} (max|d| {diff:.1e}) {'ok' if same else 'FAIL'}")
+    if not same:
+        fail(phase, f"splat composite: the culled and per-tile kernels differ ({what})")
+    del old
+    return dict(variant=splat.VARIANT_NAMES[splat.VARIANT_CULLED], other_variant_ms=other_ms,
+                served_variant_ms_in_turns=served_ms,
+                presorted_ms=sorted_ms, index_order_ms=index_ms,
+                other_variant_bit_equal=same)
+
+
 def _splat_kernel_checks(torch, dev):
-    """Kernel 3 against its twin on one 24-view render call (both payloads)
-    and on one view chunk of the train step, the binned render of one view
-    against the dense oracle, and kernel 4 against its twin on the same two
-    calls. Returns the forward's and the backward's runs."""
+    """Kernel 3 against its twin and against the per-tile kernel on one
+    24-view render call (both payloads) and on one view chunk of the train
+    step, the binned render of one view against the dense oracle, and kernel
+    4 against its twin on the same two calls. Returns the forward's and the
+    backward's runs."""
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops import gaussian_splat as tgs
     from videomv_tpu_torch.ops import splat
@@ -506,6 +603,10 @@ def _splat_kernel_checks(torch, dev):
         pairs = pairs.tolist()
         if max(pairs) > cap:
             fail("kernels", f"synthetic scene overflows the capacity {cap}: {pairs}")
+        rows = payload.shape[1]
+        what = f"{rows}-row payload, {SPLAT_VIEWS} views at {SPLAT_SIZE}²"
+        st = _splat_stats(torch, payload, ts, tc, nts)
+        _say_splat_stats("kernels", what, st)
         ops.reset_launch_counts()
         kern = splat.composite(payload, ts, tc, nts)
         torch.cuda.synchronize()
@@ -516,26 +617,26 @@ def _splat_kernel_checks(torch, dev):
         ms, plain_ms = _time_turns(torch, lambda: splat.composite_reference(payload, ts, tc, nts),
                                    lambda: splat.composite(payload, ts, tc, nts), iters=3)
         ok = err <= SPLAT_TOL
-        rows = payload.shape[1]
-        alive = _splat_alive_points(torch, payload, ts, tc, nts)
-        bound_ms, bound_by = _splat_bound(SPLAT_VIEWS, rows, cap, nts * nts, sum(pairs), alive)
+        alive = st["alive_points"]
+        bound_ms, bound_by, walk_ms = _splat_bound(SPLAT_VIEWS, rows, cap, nts * nts, sum(pairs),
+                                                   alive)
         runs.append(dict(shape=[SPLAT_VIEWS, rows, cap], calls_per_request=3 if packed else 0,
                          calls_per_train_step=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                         share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms,
                          live_pairs=[min(pairs), sum(pairs) // len(pairs), max(pairs)],
-                         alive_points=alive, alive_share=alive / (256 * sum(pairs)),
-                         capacity=cap, max_tile_pairs=int(tc.max())))
-        say("kernels", f"splat_composite {rows}-row payload, {SPLAT_VIEWS} views x {nts ** 2} "
-            f"tiles, {SPLAT_GAUSSIANS} Gaussians: live pairs per view min/mean/max "
-            f"{min(pairs)}/{sum(pairs) // len(pairs)}/{max(pairs)} of capacity {cap}, "
-            f"max pairs per tile {int(tc.max())}, alive (pixel, pair) points {alive} = "
-            f"{100 * alive / (256 * sum(pairs)):.2f}% of the segments' points; binning "
-            f"{bin_s * 1e3:.1f} ms, peak "
-            f"{bin_gib:.3f} GiB; |k-twin| {err:.3e} (bound {SPLAT_TOL:.0e}) kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+                         alive_points=alive, alive_share=st["alive_share"],
+                         capacity=cap, max_tile_pairs=int(tc.max()), splat_stats=st))
+        say("kernels", f"splat_composite {what} x {nts ** 2} tiles, {SPLAT_GAUSSIANS} "
+            f"Gaussians: live pairs per view min/mean/max "
+            f"{min(pairs)}/{sum(pairs) // len(pairs)}/{max(pairs)} of capacity {cap}; binning "
+            f"{bin_s * 1e3:.1f} ms, peak {bin_gib:.3f} GiB; |k-twin| {err:.3e} (bound "
+            f"{SPLAT_TOL:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
+            f"ms ({bound_by}; {100 * bound_ms / ms:.1f}%), segment-walk count {walk_ms:.4f} ms "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"splat composite ({rows} rows) outside its error bound")
+        runs[-1].update(_splat_variants(torch, payload, ts, tc, nts, kern, "kernels", what))
         if not packed:
             bwd_runs = [_splat_bwd_check(torch, payload, ts, tc, kern, nts, sum(pairs), alive,
                                          f"{SPLAT_VIEWS} views at {SPLAT_SIZE}²", 0)]
@@ -573,29 +674,32 @@ def _splat_kernel_checks(torch, dev):
     proj = [p[0] for p in tgs.project_prepared(prep, cv, cvp, size, tan)]
     payload, ts, tc, pairs = splat.bin_pairs(*proj, img_size=size, max_pairs=cap)
     live = int(tc.sum())
+    what = f"16-row payload, {views} views at {size}²"
+    st = _splat_stats(torch, payload, ts, tc, nts)
+    _say_splat_stats("kernels", what, st)
     kern = splat.composite(payload, ts, tc, nts)
     twin = splat.composite_reference(payload, ts, tc, nts)
     err = (kern - twin).abs().max().item()
     ms, plain_ms = _time_turns(torch, lambda: splat.composite_reference(payload, ts, tc, nts),
                                lambda: splat.composite(payload, ts, tc, nts), iters=3)
-    alive = _splat_alive_points(torch, payload, ts, tc, nts)
-    bound_ms, bound_by = _splat_bound(views, 16, cap, nts * nts, live, alive)
+    alive = st["alive_points"]
+    bound_ms, bound_by, walk_ms = _splat_bound(views, 16, cap, nts * nts, live, alive)
     ok = err <= SPLAT_TOL
     runs.append(dict(shape=[views, 16, cap], calls_per_request=0,
                      calls_per_train_step=TRAIN_LAUNCHES["splat_composite"], max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=None, live_pairs=[live // views], alive_points=alive,
-                     alive_share=alive / (256 * live), capacity=cap,
-                     max_tile_pairs=int(tc.max())))
-    say("kernels", f"splat_composite 16-row payload, {views} views at {size}² x {nts ** 2} "
-        f"tiles: demanded pairs per view {pairs.tolist()}, live {live} of capacity "
-        f"{views} x {cap}, max pairs per tile {int(tc.max())}, alive (pixel, pair) points "
-        f"{alive} = {100 * alive / (256 * live):.2f}% of the segments' points; |k-twin| "
-        f"{err:.3e} (bound "
+                     library_ms=None, share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms,
+                     live_pairs=[live // views], alive_points=alive,
+                     alive_share=st["alive_share"], capacity=cap,
+                     max_tile_pairs=int(tc.max()), splat_stats=st))
+    say("kernels", f"splat_composite {what} x {nts ** 2} tiles: demanded pairs per view "
+        f"{pairs.tolist()}, live {live} of capacity {views} x {cap}; |k-twin| {err:.3e} (bound "
         f"{SPLAT_TOL:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-        f"({bound_by}) {'ok' if ok else 'FAIL'}")
+        f"({bound_by}; {100 * bound_ms / ms:.1f}%), segment-walk count {walk_ms:.4f} ms "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail("kernels", "splat composite (512²) outside its error bound")
+    runs[-1].update(_splat_variants(torch, payload, ts, tc, nts, kern, "kernels", what))
     bwd_runs.append(_splat_bwd_check(torch, payload, ts, tc, kern, nts, live, alive,
                                      f"{views} views at {size}²",
                                      TRAIN_LAUNCHES["splat_composite_bwd"]))
@@ -631,20 +735,22 @@ def _splat_bwd_check(torch, payload, ts, tc, saved, nts, live_pairs, alive_point
         torch, lambda: splat.composite_backward_reference(payload, ts, tc, saved, grad, nts),
         lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts), iters=2)
     R, rows, cap = payload.shape
-    bound_ms, bound_by = _splat_bound(R, rows, cap, nts * nts, live_pairs, alive_points,
-                                      backward=True)
+    bound_ms, bound_by, walk_ms = _splat_bound(R, rows, cap, nts * nts, live_pairs,
+                                               alive_points, backward=True)
     ok = err <= SPLAT_BWD_TOL * scale and dead == 0.0 and same
     say("kernels", f"splat_composite_bwd {what}, {live_pairs} live pairs, {alive_points} alive "
         f"(pixel, pair) points: max|k-twin| "
         f"{err:.3e} of max|grad| {scale:.3e} = {err / scale:.3e} (bound {SPLAT_BWD_TOL:.0e}); "
         f"by row, relative to the row's largest: {['%.1e' % e for e in by_row]}; rows "
         f"10-15 max {dead:.1e}; autograd path bit-identical {same}; kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
+        f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}%), "
+        f"segment-walk count {walk_ms:.4f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("kernels", f"splat composite backward ({what}) outside its error bound")
     return dict(shape=[R, rows, cap], calls_per_request=0, calls_per_train_step=calls_per_step,
                 max_abs_err=err, rel_err=err / scale, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, live_pairs=live_pairs,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms, live_pairs=live_pairs,
                 alive_points=alive_points, alive_share=alive_points / (256 * live_pairs))
 
 
@@ -1769,6 +1875,21 @@ def phase_profile(torch):
             return splat.bin_pairs(*proj, img_size=st.output_size, max_pairs=cap, packed=True)
 
         payload, ts, tc, pairs = project_and_bin()
+        # the served render's composite: its stats, the twin, the per-tile kernel
+        what = f"served refine render, 8-row payload, 24 views at {st.output_size}²"
+        stats = _splat_stats(torch, payload, ts, tc, nts)
+        _say_splat_stats("profile", what, stats)
+        kern = splat.composite(payload, ts, tc, nts)
+        err = (kern - splat.composite_reference(payload, ts, tc, nts)).abs().max().item()
+        bound_ms, bound_by, walk_ms = _splat_bound(
+            24, 8, cap, nts * nts, stats["live_pairs"], stats["alive_points"])
+        say("profile", f"splat_composite {what}: |k-twin| {err:.3e} (bound {SPLAT_TOL:.0e}), "
+            f"bound {bound_ms:.4f} ms ({bound_by}), segment-walk count {walk_ms:.4f} ms "
+            f"{'ok' if err <= SPLAT_TOL else 'FAIL'}")
+        if not err <= SPLAT_TOL:
+            fail("profile", "splat composite (served render) outside its error bound")
+        _splat_variants(torch, payload, ts, tc, nts, kern, "profile", what)
+        del kern
         renders = torch.rand((24, 3, 256, 256), generator=gen, device=dev) * 2 - 1
         parts = {
             "UNet forward, 24 rows": timed(lambda: pipe.unet(x[:1], t[:1], y=y[:1],
@@ -2103,6 +2224,9 @@ def phase_train(torch):
                 torch, lambda: bin_chunk(gauss), 5),
             "composite forward kernel, 1 chunk": _time_one(
                 torch, lambda: splat.composite(payload.detach(), ts, tc, nts), 5),
+            "composite forward, the per-tile kernel, 1 chunk": _time_one(
+                torch, lambda: splat._composite_forward(payload.detach(), ts, tc, nts,
+                                                        variant=splat.VARIANT_PER_TILE), 5),
             "composite backward kernel, 1 chunk": _time_one(
                 torch, lambda: splat.composite_backward(payload.detach(), ts, tc, out_tiles,
                                                         gtiles, nts), 5),

@@ -1,9 +1,11 @@
 """GPU-only checks of the port's CUDA kernels beyond the main path's shapes
 (head_dim 128, single-tile and odd-tile sequences, token counts that are not
 a tile multiple, the widest and narrowest C; the splat composite with both
-payloads and an overflowing pair capacity; its backward kernel against its
-twin and against autograd of the forward twin), the wrappers' input checks,
-the backward of the attention and FFN wrappers, the module dispatch, and the
+payloads and an overflowing pair capacity, bit-equal to the per-tile kernel,
+and on a render whose pairs pile up in a few tiles; its backward kernel
+against its twin and against autograd of the forward twin), the wrappers'
+input checks, the backward of the attention and FFN wrappers, the module
+dispatch, and the
 fused spatial-transformer block (other widths and contexts than the served
 ones, its input checks, its backward, its dispatch under the environment
 switch; the wgmma kernel at the served width against its twin at ragged
@@ -219,6 +221,86 @@ def test_splat_composite_matches_its_twin(cuda, packed, max_pairs):
     twin = splat.composite_reference(payload, ts, tc, 4)
     assert twin[:, :, 3].max() > 0.5  # the views are covered
     # fp32 both; a running product against exp of a cumulative log sum
+    assert (kern - twin).abs().max().item() <= 2e-4
+    # the served (culled) kernel gives the per-tile kernel's bits, run after run
+    old = splat._composite_forward(payload, ts, tc, 4, variant=splat.VARIANT_PER_TILE)
+    assert torch.equal(kern, old)
+    assert torch.equal(splat.composite(payload, ts, tc, 4), kern)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_splat_composite_culled_keeps_degenerate_pairs(cuda, packed):
+    """Pairs that the culling box cannot bound (a NaN opacity, a NaN or
+    indefinite conic, a conic whose products overflow), planted in the
+    busiest segment with their means far outside the tile, reach every block:
+    the culled kernel gives the per-tile kernel's bits. A NaN opacity makes
+    alpha 0.99 wherever power <= 0, so that pair covers the whole tile."""
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, _ = _splat_bins(cuda, packed, 1 << 15, views=2)
+    t = int(tc[0].argmax())
+    assert int(tc[0, t]) > 12
+    at = [int(ts[0, t]) + 3 * k for k in range(5)]
+    payload[0, :2, at] = -1000.0                    # the means, far outside the tile
+    payload[0, 2:5, at[1]] = float("nan")           # a NaN conic
+    payload[0, 2, at[2]] = -1.0                     # a <= 0
+    payload[0, 2:5, at[3]] = torch.tensor([1.0, 2.0, 1.0], device=cuda)  # det < 0
+    payload[0, 2, at[4]] = payload[0, 4, at[4]] = 1e30  # a c overflows
+    nan = torch.full((1,), float("nan"), device=cuda)
+    if packed:
+        payload[0, 6, at[0]] = splat._pack2(splat._unpack2(payload[0, 6, at[:1]])[0], nan)[0]
+    else:
+        payload[0, 8, at[0]] = nan[0]
+    kern = splat.composite(payload, ts, tc, 4)
+    old = splat._composite_forward(payload, ts, tc, 4, variant=splat.VARIANT_PER_TILE)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, old)
+    # the NaN-opacity and NaN-conic pairs cover the tile (alpha 0.99 each)
+    assert kern[0, t, 3].min().item() > 0.999
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_splat_composite_heavy_tiles(cuda, packed):
+    """A few tiles hold thousands of pairs and most hold none, over more
+    (view, tile) items than the persistent grid has CTAs: the heaviest-first
+    schedule's tail, items with no pairs, and a view left empty."""
+    import numpy as np
+
+    from videomv_tpu_torch.data.cameras import (
+        GSCameraSettings, orbit_c2w_opengl, prepare_gs_training)
+    from videomv_tpu_torch.ops import gaussian_splat as tgs
+    from videomv_tpu_torch.ops import splat
+
+    n, views, size = 12288, 40, 256
+    rs = np.random.default_rng(11)
+    centres = rs.uniform(-0.3, 0.3, (3, 3))
+    xyz = np.where(rs.uniform(size=(n, 1)) < 0.9,
+                   centres[rs.integers(0, 3, n)] + rs.normal(0, 0.01, (n, 3)),
+                   rs.uniform(-0.5, 0.5, (n, 3)))
+    quat = rs.normal(size=(n, 4))
+    g = np.concatenate([xyz, rs.uniform(0.05, 1.0, (n, 1)), rs.uniform(0.002, 0.01, (n, 3)),
+                        quat / np.linalg.norm(quat, axis=1, keepdims=True),
+                        rs.uniform(0, 1, (n, 3))], axis=1).astype(np.float32)
+    st = GSCameraSettings(input_size=size, output_size=size)
+    cams = prepare_gs_training(orbit_c2w_opengl(views, 15.0, 2.0), st, ray_size=8)
+    prep = {k: v[None] for k, v in tgs.prepare_gaussians(torch.from_numpy(g).to(cuda)).items()}
+    proj = tgs.project_prepared(prep, torch.from_numpy(cams["cam_view"][0]).to(cuda),
+                                torch.from_numpy(cams["cam_view_proj"][0]).to(cuda), size,
+                                st.tan_half_fov)
+    payload, ts, tc, _ = splat.bin_pairs(*proj, img_size=size, max_pairs=1 << 17, packed=packed)
+    tc[7] = 0  # an empty view
+    nts = size // 16
+    # at most 8 CTAs of 256 threads fit an SM's 2,048 threads
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert views * nts * nts > 2 * 8 * sms
+    counts = tc.flatten().sort(descending=True).values
+    assert counts[0] >= 2000 and counts[len(counts) // 2] < 64, counts[:8]
+    kern = splat.composite(payload, ts, tc, nts)
+    old = splat._composite_forward(payload, ts, tc, nts, variant=splat.VARIANT_PER_TILE)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, old)
+    assert kern[7].abs().max().item() == 0.0
+    twin = splat.composite_reference(payload, ts, tc, nts)
     assert (kern - twin).abs().max().item() <= 2e-4
 
 

@@ -41,7 +41,9 @@ _SIGNATURES = {
     "vmv_flash_attn_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_float, _c_int, _c_void_p],
     # x, w1, b1, w2, b2, out, then T, C, I, variant
     "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
-    "vmv_splat_composite_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p],
+    # payload, tile_start, tile_count, order (or null), scratch, out, then R,
+    # rows, capacity, n_tiles_side, variant
+    "vmv_splat_composite_fwd": [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p],
     "vmv_splat_composite_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
     # a host array of the device pointers, then R, S, C, L, Cc, heads, inner,
     # variant

@@ -17,7 +17,13 @@ The composite (``composite``) replaces the Pallas kernel
 depth-ordered pairs front to back and writes ``[5, 256]`` rows (RGB before
 the background, alpha = 1 − T, depth). On a CUDA tensor it launches the
 kernel, or raises; on a CPU tensor it runs ``composite_reference``, the
-plain twin. ``LAUNCHES`` counts kernel launches and nothing else.
+plain twin. ``LAUNCHES`` counts kernel launches and nothing else. The
+kernel served is the culled one (``VARIANT_CULLED``): (view, tile) items in
+the order of ``heaviest_first``, each warp walking only the pairs that may be
+alive in its 8 × 4 pixel block (``cull_masks`` is the plain mirror of that
+conservative test). The first port's kernel (``VARIANT_PER_TILE``), which
+walks every pixel against every pair, stays for comparison; the two give the
+same bits.
 
 ``composite`` is a ``torch.autograd.Function`` (the JAX package's
 ``_composite`` custom_vjp): its backward replaces the Pallas kernel
@@ -44,20 +50,30 @@ MXU prefix-sum tricks.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
 from .gaussian_splat import prepare_gaussians, project_prepared
 
 __all__ = [
+    "BLOCK_H",
+    "BLOCK_W",
     "BWD_LAUNCHES",
     "LAUNCHES",
     "TILE",
+    "VARIANT_CULLED",
+    "VARIANT_NAMES",
+    "VARIANT_PER_TILE",
     "bin_pairs",
     "composite",
     "composite_backward",
     "composite_backward_reference",
     "composite_reference",
+    "cull_masks",
+    "heaviest_first",
+    "pixel_blocks",
     "rasterize_binned_batch",
     "untile",
 ]
@@ -66,6 +82,20 @@ TILE = 16
 MAX_SPAN = 16  # tiles per side a Gaussian may cover (the JAX package's default)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+# The two kernels behind ``vmv_splat_composite_fwd`` (csrc/splat_composite.cu):
+# the culled kernel serves every call; the per-tile kernel of the first port
+# is launched only when a caller names it, to compare the two.
+VARIANT_PER_TILE, VARIANT_CULLED = 0, 1
+VARIANT_NAMES = {VARIANT_PER_TILE: "per-tile", VARIANT_CULLED: "culled"}
+# a warp's pixel block in the culled kernel: 8 columns x 4 rows, 8 a tile
+BLOCK_W, BLOCK_H = 8, 4
+_ALPHA_MIN = 1.0 / 255.0  # the cut; as an fp32 constant where it is compared
+# the culling box's margins, as csrc/splat_composite.cu names them (its
+# header says what each covers)
+CULL_MARGINS = {"kCutMargin": 2.0 ** -10, "kTauMargin": 2.0 ** -12,
+                "kPowerErr": 2.0 ** -19, "kDetErr": 2.0 ** -22, "kQErr": 2.0 ** -20,
+                "kMeanMax": 2.0 ** 20}
 
 _HI_MASK = -65536  # 0xFFFF0000 as int32
 
@@ -185,14 +215,126 @@ def _pixel_coords(n_tiles_side: int, device):
     return px, py
 
 
+def pixel_blocks(device=None) -> torch.Tensor:
+    """``[256]`` int64: the culled kernel's warp block of each pixel of a tile
+    (row-major pixels; block ``by · 2 + bx`` holds columns ``8·bx … 8·bx+7``
+    of rows ``4·by … 4·by+3``)."""
+    p = torch.arange(TILE * TILE, device=device)
+    return (p // TILE // BLOCK_H) * (TILE // BLOCK_W) + (p % TILE) // BLOCK_W
+
+
+# (view, tile) items the culled kernel takes in one call: its order kernel
+# ranks them in spans of 512, at most 65,535 spans
+MAX_CULLED_ITEMS = 65535 * 512
+
+
+def heaviest_first(tile_count: torch.Tensor) -> torch.Tensor:
+    """The order in which the culled kernel takes its (view, tile) items:
+    flat indices ``view · T + tile`` of ``tile_count [R, T]`` (counts >= 0),
+    by descending pair count, ties in index order, as ``[R·T]`` int32. The
+    plain mirror of the order the kernel's entry point forms on the device,
+    inside its own call: a stable argsort."""
+    return torch.argsort(tile_count.reshape(-1), descending=True, stable=True).to(torch.int32)
+
+
+def _cull_extents(mx, my, a, b, c, op):
+    """The level ``t`` of Q = ½ qᵀMq that bounds each pair's alive points,
+    the half-extents ``(ex, ey)`` of its conservative box, whether the pair
+    is well formed (else it keeps every block) and whether it reaches no
+    pixel: the fp32 operations of ``cull_box`` in csrc/splat_composite.cu,
+    in its order, each rounded (only ``torch.log`` may differ from the
+    kernel's ``logf`` by an ulp), whose header states the margin. NaN
+    extents keep every block."""
+    m = CULL_MARGINS
+    th = torch.tensor(_ALPHA_MIN, dtype=torch.float32)
+    empty = op < th * (1.0 - m["kCutMargin"])
+    tau = (torch.fmax(torch.log(op / th), torch.zeros_like(op)) * (1.0 + m["kTauMargin"])
+           + m["kTauMargin"])
+    ac, bb = a * c, b * b
+    det = (ac - bb) - m["kDetErr"] * (ac + bb)
+    k = m["kPowerErr"] * (1.0 + 2.0 * ac / det)
+    ok = ((op == op) & (a > 0) & (c > 0) & (det > 0) & (ac <= 3.0e38) & (bb <= 3.0e38)
+          & (k < 0.5) & (mx.abs() < m["kMeanMax"]) & (my.abs() < m["kMeanMax"]))
+    t = tau / (1.0 - k)
+    inf = torch.tensor(float("inf"), dtype=torch.float32)
+    ex = torch.where(ok, torch.sqrt(2.0 * t * c / det) * (1.0 + m["kTauMargin"]), inf)
+    ey = torch.where(ok, torch.sqrt(2.0 * t * a / det) * (1.0 + m["kTauMargin"]), inf)
+    return t, ex, ey, ok, empty
+
+
+def _q_low(a, b, c, x, y):
+    """A lower bound of Q = ½(a x² + c y²) + b x y at (x, y) through the
+    rounding, as ``q_low`` in csrc/splat_composite.cu."""
+    half = 0.5 * ((a * x) * x + (c * y) * y)
+    bxy = (b * x) * y
+    return (half + bxy) - CULL_MARGINS["kQErr"] * (half + bxy.abs())
+
+
+def cull_masks(payload: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
+               n_tiles_side: int) -> torch.Tensor:
+    """``[R, P]`` uint8: for each pair of a segment, the 8-bit mask of the
+    warp blocks of its tile (bit ``by · 2 + bx``, see ``pixel_blocks``) that
+    may hold an alive point of it, as the culled kernel forms it: the blocks
+    its conservative box meets, each then tested exactly (Q's least value
+    over the block, bounded from below through the rounding, against the
+    box's level). 0 for a pair that reaches no pixel and for every pair
+    outside the segments. A block whose bit is clear holds no alive point of
+    the pair."""
+    R, rows, P = payload.shape
+    T = n_tiles_side * n_tiles_side
+    dev = payload.device
+    count = tile_count.reshape(-1).long()
+    total = int(count.sum())
+    flat_tile = torch.arange(R * T, device=dev).repeat_interleave(count, output_size=total)
+    first = torch.cumsum(count, 0) - count
+    pos = (tile_start.reshape(-1).long().repeat_interleave(count, output_size=total)
+           + torch.arange(total, device=dev) - first.repeat_interleave(count, output_size=total))
+    view, tile = flat_tile // T, flat_tile % T
+    d = payload[view, :, pos]                                  # [pairs, rows]
+    op = _unpack2(d[:, 6])[1] if rows == 8 else d[:, 8]
+    mx, my, a, b, c = (d[:, i] for i in range(5))
+    t, ex, ey, ok, empty = _cull_extents(mx, my, a, b, c, op)
+    # the blocks' rectangles of differences, [pairs, 4 (by), 2 (bx)]
+    xl = ((tile % n_tiles_side) * TILE).float()[:, None] + torch.arange(
+        0, TILE, BLOCK_W, device=dev).float()
+    yl = ((tile // n_tiles_side) * TILE).float()[:, None] + torch.arange(
+        0, TILE, BLOCK_H, device=dev).float()
+    x_lo, x_hi = (xl - mx[:, None])[:, None, :], ((xl + (BLOCK_W - 1)) - mx[:, None])[:, None, :]
+    y_lo, y_hi = (yl - my[:, None])[:, :, None], ((yl + (BLOCK_H - 1)) - my[:, None])[:, :, None]
+    # the box ("not outside": a NaN keeps the block)
+    box = (~(x_lo > ex[:, None, None]) & ~(x_hi < -ex[:, None, None])
+           & ~(y_lo > ey[:, None, None]) & ~(y_hi < -ey[:, None, None]))
+    # the exact test of each block
+    a3, b3, c3 = a[:, None, None], b[:, None, None], c[:, None, None]
+    ba, bc = -b3 / a3, -b3 / c3
+    t_hi = (t * (1.0 + CULL_MARGINS["kTauMargin"]))[:, None, None]
+
+    def clamp_to(v, lo, hi):  # fmin/fmax, as in CUDA: a NaN v gives a bound
+        return torch.fmin(torch.fmax(v, lo), hi)
+
+    out = ((_q_low(a3, b3, c3, x_lo, clamp_to(bc * x_lo, y_lo, y_hi)) > t_hi)
+           & (_q_low(a3, b3, c3, x_hi, clamp_to(bc * x_hi, y_lo, y_hi)) > t_hi)
+           & (_q_low(a3, b3, c3, clamp_to(ba * y_lo, x_lo, x_hi), y_lo) > t_hi)
+           & (_q_low(a3, b3, c3, clamp_to(ba * y_hi, x_lo, x_hi), y_hi) > t_hi))
+    holds_mean = (x_lo <= 0) & (x_hi >= 0) & (y_lo <= 0) & (y_hi >= 0)
+    keep = box & (holds_mean | ~out | ~ok[:, None, None])
+    bits = (keep.reshape(-1, 8).long() << torch.arange(8, device=dev)).sum(1)
+    bits = torch.where(empty, torch.zeros_like(bits), bits)
+    masks = torch.zeros(R, P, dtype=torch.uint8, device=dev)
+    masks[view, pos] = bits.to(torch.uint8)
+    return masks
+
+
 def composite_reference(payload: torch.Tensor, tile_start: torch.Tensor,
-                        tile_count: torch.Tensor, n_tiles_side: int, chunk: int = 64
-                        ) -> torch.Tensor:
+                        tile_count: torch.Tensor, n_tiles_side: int, chunk: int = 64,
+                        masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain twin of the composite kernel (the JAX ``_tile_kernel``'s
     math): per tile, α over ``[tiles, 256, chunk]`` blocks, transmittance
     from an exclusive cumulative sum of log(1 − α), weights contracted with
     (r, g, b, depth). Vectorised over every tile of every view; the loop
-    runs over chunk index only. Returns ``[R, T, 5, 256]``."""
+    runs over chunk index only. Returns ``[R, T, 5, 256]``. With ``masks``
+    (``cull_masks``' ``[R, P]``) every point outside its pair's mask is also
+    taken as dead, as the culled kernel skips it."""
     R, rows, P = payload.shape
     T = n_tiles_side * n_tiles_side
     dev = payload.device
@@ -204,6 +346,9 @@ def composite_reference(payload: torch.Tensor, tile_start: torch.Tensor,
     trans = torch.ones(R * T, TILE * TILE, device=dev)
     acc = torch.zeros(R * T, TILE * TILE, 4, device=dev)
     j = torch.arange(chunk, device=dev)
+    if masks is not None:
+        flat_masks = masks.reshape(R * P).long()
+        blocks = pixel_blocks(dev)[None, :, None]             # [1, 256, 1]
     n_chunks = -(-int(count.max()) // chunk) if count.numel() else 0
     for ci in range(n_chunks):
         pos = ci * chunk + j                                  # [chunk]
@@ -224,6 +369,8 @@ def composite_reference(payload: torch.Tensor, tile_start: torch.Tensor,
                  - d[:, None, :, 3] * dx * dy)
         alpha = torch.clamp_max(op[:, None, :] * torch.exp(power), 0.99)
         dead = (power > 0.0) | (alpha < 1.0 / 255.0) | ~live[:, None, :]
+        if masks is not None:
+            dead = dead | (((flat_masks[gidx][:, None, :] >> blocks) & 1) == 0)
         alpha = torch.where(dead, torch.zeros_like(alpha), alpha)
         logs = torch.log1p(-alpha)
         incl = torch.cumsum(logs, dim=-1)
@@ -369,18 +516,43 @@ def composite_backward(payload: torch.Tensor, tile_start: torch.Tensor,
     return dpayload
 
 
-def _composite_forward(payload, tile_start, tile_count, n_tiles_side):
+def _composite_forward(payload, tile_start, tile_count, n_tiles_side,
+                       variant: int = VARIANT_CULLED, order: Optional[torch.Tensor] = None):
+    """One kernel launch on a CUDA tensor, the twin on a CPU tensor.
+    ``variant`` names the kernel and ``order`` replaces the heaviest-first
+    order the culled kernel's entry point forms by another permutation of
+    the (view, tile) items, for measurements of the two kernels and of the
+    schedule on one input."""
     global LAUNCHES
     if not payload.is_cuda:
         return composite_reference(payload, tile_start, tile_count, n_tiles_side)
     _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side)
+    if variant not in VARIANT_NAMES:
+        raise ValueError(f"splat composite: unknown variant {variant}")
     R, rows, P = payload.shape
     out = torch.empty((R, n_tiles_side * n_tiles_side, 5, TILE * TILE),
                       device=payload.device, dtype=torch.float32)
+    n = tile_count.numel()
+    scratch = None
+    if variant == VARIANT_CULLED:
+        if n > MAX_CULLED_ITEMS:
+            raise ValueError(f"splat composite: {n} (view, tile) items, more than the "
+                             f"{MAX_CULLED_ITEMS} the culled kernel's order takes")
+        # the counter, then (when the entry point forms the order) the order
+        # and its ranks
+        scratch = torch.empty(2 * n + 1, dtype=torch.int32, device=payload.device)
+        if order is not None and (order.dtype != torch.int32 or order.device != payload.device
+                                  or tuple(order.shape) != (n,) or not order.is_contiguous()):
+            raise ValueError(f"splat composite: order must be contiguous int32 [{n}] on "
+                             f"{payload.device}")
+    else:
+        order = None
     lib = _build.load_library()
     err = lib.vmv_splat_composite_fwd(
-        payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
-        R, rows, P, n_tiles_side, torch.cuda.current_stream(payload.device).cuda_stream)
+        payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+        None if order is None else order.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), R, rows, P,
+        n_tiles_side, variant, torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(err, "vmv_splat_composite_fwd")
     LAUNCHES += 1
     return out
