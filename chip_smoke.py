@@ -14,7 +14,8 @@ Phases (each prints its lines; a failed phase exits non-zero):
      24-view 256² render call of a 65,536-Gaussian scene, both payloads, and
      on one 2-view 512² chunk of the train step (error vs its twin), the
      composite's backward kernel on the same two calls (error vs its twin,
-     relative to the largest gradient), the binned render of one view
+     relative to the largest gradient; the per-tile kernel of the first port
+     and the item order in turns), the binned render of one view
      against the dense oracle, the backward of the attention and FFN
      wrappers against autograd of their twins, and the fused spatial block
      at the UNet's 32² / C = 320 stage over the I2V and T2V contexts (error
@@ -66,7 +67,8 @@ no CUDA device the script fails before printing any result.
 
 ``--phases env,build,kernels`` runs a subset (for bring-up of one part);
 ``--kernels geglu_ffn,flash_attention`` cuts the kernels phase to the named
-kernels.
+kernels; ``--phases env,ffn_ablation`` (``spatial_ablation``,
+``splat_bwd_ablation``) times kernel 2 (5, 4) with parts compiled out.
 """
 
 from __future__ import annotations
@@ -240,12 +242,15 @@ SPATIAL_WGMMA_KERNELS = ("spatial_ctx_kv_wgmma_kernel", "spatial_front_kv_wgmma_
 SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
                                                 "splat_composite_kernel")
                           for p in ("packed", "fp32"))
+# kernel 4's two variants: the same report
+SPLAT_BWD_KERNELS = ("splat_composite_bwd_culled_kernel", "splat_composite_bwd_kernel")
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
 # what each part costs), one child process per build (`ffn_times`).
-EXTRA_PHASES = ("ffn_ablation", "ffn_times", "spatial_ablation", "spatial_times")
+EXTRA_PHASES = ("ffn_ablation", "ffn_times", "spatial_ablation", "spatial_times",
+                "splat_bwd_ablation", "splat_bwd_times")
 # `--phases env,spatial_ablation` does the same for kernel 5's wgmma kernels at
 # the served I2V shape (the VMV_SP_* switches of csrc/fused_spatial.cu), with
 # each __global__'s share from torch.profiler (`spatial_times`).
@@ -253,6 +258,11 @@ SPATIAL_ABLATIONS = ("", "VMV_SP_NOLOAD", "VMV_SP_NOKV", "VMV_SP_NOGEMM", "VMV_S
                      "VMV_SP_NOEXP", "VMV_SP_NOLOAD,VMV_SP_NOKV",
                      "VMV_SP_NOGEMM,VMV_SP_NOATTN,VMV_SP_NOEXP",
                      "VMV_SP_NOLOAD,VMV_SP_NOKV,VMV_SP_NOGEMM,VMV_SP_NOATTN,VMV_SP_NOEXP")
+# `--phases env,splat_bwd_ablation` times kernel 4's culled kernel on the
+# kernels phase's two backward calls with parts compiled out or changed (the
+# VMV_BWD_* switches of csrc/splat_composite_bwd.cu).
+SPLAT_BWD_ABLATIONS = ("", "VMV_BWD_NOWALK", "VMV_BWD_NOREDUCE", "VMV_BWD_NOEXP",
+                       "VMV_BWD_NOMEMSET", "VMV_BWD_NOWALK,VMV_BWD_NOMEMSET", "VMV_BWD_IEEEDIV")
 FFN_ABLATIONS = ("", "VMV_NOGELU", "VMV_NOG1", "VMV_NOG2", "VMV_NOLOAD",
                  "VMV_NOGELU,VMV_NOG1,VMV_NOG2", "VMV_NOLOAD,VMV_NOGELU,VMV_NOG1,VMV_NOG2")
 
@@ -313,9 +323,11 @@ def phase_build():
     for ln in ptxas:
         print(f"  {ln}", flush=True)
     # the wgmma kernels (attention, the FFN, the fused spatial block's three
-    # phases) and the splat composite's forward kernels: registers and spills
-    # from ptxas, shared memory from ptxas (splat) or the wrappers' plans; a
-    # spill or a serialised wgmma pipeline in them fails the build phase
+    # phases) and the splat composite's forward and backward kernels:
+    # registers and spills from ptxas, shared memory from ptxas (splat; the
+    # culled backward's dynamic shared memory from its entry point) or the
+    # wrappers' plans; a spill or a serialised wgmma pipeline in them fails
+    # the build phase
     from videomv_tpu_torch.ops import flash_attention as fa
     from videomv_tpu_torch.ops import fused_ffn as ff
     from videomv_tpu_torch.ops import fused_spatial as fs
@@ -334,7 +346,7 @@ def phase_build():
         if "0 bytes spill stores, 0 bytes spill loads" not in spill:
             bad.append(f"{name} spills: {spill}")
     want = ({"flash_attn_wgmma_kernel"} | {f"geglu_ffn_wgmma_kernel<{c}>" for c in ff.WGMMA_WIDTHS}
-            | set(SPATIAL_WGMMA_KERNELS) | set(SPLAT_FWD_KERNELS))
+            | set(SPATIAL_WGMMA_KERNELS) | set(SPLAT_FWD_KERNELS) | set(SPLAT_BWD_KERNELS))
     if set(found) != want:
         bad.append(f"expected the kernels {sorted(want)} in the log, found {sorted(found)}")
     if bad and not info["cached"]:
@@ -349,20 +361,25 @@ def phase_build():
         f"{plan['ctx_smem_bytes']} B, {SPATIAL_WGMMA_KERNELS[1]} {plan['front_smem_bytes']} B, "
         f"{SPATIAL_WGMMA_KERNELS[2]} {plan['block_smem_bytes']} B dynamic shared, "
         f"{plan['threads']} threads; plan {plan}")
+    say("build", f"{SPLAT_BWD_KERNELS[0]}: "
+        f"{_build.load_library().vmv_splat_composite_bwd_smem()} B dynamic shared, 256 threads")
     say("build", f"{info['path']} in {info['seconds']:.1f}s (cached={info['cached']})")
 
 
 def _kernel_name(line):
-    """The name of a wgmma kernel (with ``<N>`` for a template argument) or
-    of a splat composite forward kernel (``<packed>`` or ``<fp32>`` for its
-    payload) from a ptxas "Compiling entry function '_ZN...'" line, else
-    None. In the mangled name the identifier follows its length in digits,
-    and these kernels' names hold no digit."""
+    """The name of a wgmma kernel (with ``<N>`` for a template argument), of
+    a splat composite forward kernel (``<packed>`` or ``<fp32>`` for its
+    payload) or of a backward one from a ptxas "Compiling entry function
+    '_ZN...'" line, else None. In the mangled name the identifier follows its
+    length in digits, and these kernels' names hold no digit."""
     import re
 
     m = re.search(r"(splat_composite(?:_culled)?_kernel)ILb([01])E", line)
     if m:
         return m.group(1) + ("<packed>" if m.group(2) == "1" else "<fp32>")
+    m = re.search(r"(splat_composite_bwd(?:_culled)?_kernel)", line)
+    if m:
+        return m.group(1)
     m = re.search(r"([a-z_]+_wgmma_kernel)(?:ILi(\d+)E)?", line)
     if not m:
         return None
@@ -709,7 +726,11 @@ def _splat_kernel_checks(torch, dev):
 def _splat_bwd_check(torch, payload, ts, tc, saved, nts, live_pairs, alive_points, what,
                      calls_per_step):
     """Kernel 4 against its twin on a binned render call: dpayload from the
-    same payload, segments, forward output and a seeded gradient."""
+    same payload, segments, forward output and a seeded gradient, from the
+    served (culled) kernel and from the per-tile kernel of the first port,
+    each against the twin; then CUDA-event times in turns: the served kernel
+    against the per-tile one, and the culled kernel alone on the
+    heaviest-first order made beforehand against index order."""
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops import splat
 
@@ -725,33 +746,64 @@ def _splat_bwd_check(torch, payload, ts, tc, saved, nts, live_pairs, alive_point
     err = (kern - twin).abs().max().item()
     by_row = [((kern[:, r] - twin[:, r]).abs().max() / twin[:, r].abs().max().clamp_min(1e-30))
               .item() for r in range(10)]
-    dead = kern[:, 10:].abs().max().item()
+    old = splat.composite_backward(payload, ts, tc, saved, grad, nts,
+                                   variant=splat.BWD_VARIANT_PER_TILE)
+    old_err = (old - twin).abs().max().item()
+    dead = max(kern[:, 10:].abs().max().item(), old[:, 10:].abs().max().item())
+    # outside every segment: the columns past each view's last one
+    ends = (ts[:, -1] + tc[:, -1]).tolist()
+    tail = max((kern[r, :, e:].abs().max().item() for r, e in enumerate(ends)
+                if e < payload.shape[-1]), default=0.0)
+    # one writer per pair, no atomics: two launches give the same bits
+    again = torch.equal(splat.composite_backward(payload, ts, tc, saved, grad, nts), kern)
     # through autograd (the Function the render path uses) the same gradient
     p = payload.clone().requires_grad_()
     (auto,) = torch.autograd.grad(splat.composite(p, ts, tc, nts), p, grad)
     same = torch.equal(auto, kern)
-    del twin, p, auto
+    order = splat.heaviest_first(tc)
+    index = torch.arange(tc.numel(), dtype=torch.int32, device=tc.device)
+    fixed = all(torch.equal(splat.composite_backward(payload, ts, tc, saved, grad, nts, order=o),
+                            kern) for o in (order, index))
+    del twin, p, auto, old
     ms, plain_ms = _time_turns(
         torch, lambda: splat.composite_backward_reference(payload, ts, tc, saved, grad, nts),
         lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts), iters=2)
+    # _time_turns returns (the second callable's ms, the first's)
+    served_ms, other_ms = _time_turns(
+        torch, lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts,
+                                                variant=splat.BWD_VARIANT_PER_TILE),
+        lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts), iters=10)
+    sorted_ms, index_ms = _time_turns(
+        torch, lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts, order=index),
+        lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts, order=order),
+        iters=10)
     R, rows, cap = payload.shape
     bound_ms, bound_by, walk_ms = _splat_bound(R, rows, cap, nts * nts, live_pairs,
                                                alive_points, backward=True)
-    ok = err <= SPLAT_BWD_TOL * scale and dead == 0.0 and same
+    ok = (err <= SPLAT_BWD_TOL * scale and old_err <= SPLAT_BWD_TOL * scale and dead == 0.0
+          and tail == 0.0 and again and same and fixed)
     say("kernels", f"splat_composite_bwd {what}, {live_pairs} live pairs, {alive_points} alive "
-        f"(pixel, pair) points: max|k-twin| "
-        f"{err:.3e} of max|grad| {scale:.3e} = {err / scale:.3e} (bound {SPLAT_BWD_TOL:.0e}); "
-        f"by row, relative to the row's largest: {['%.1e' % e for e in by_row]}; rows "
-        f"10-15 max {dead:.1e}; autograd path bit-identical {same}; kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}%), "
-        f"segment-walk count {walk_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+        f"(pixel, pair) points: max|k-twin| culled {err:.3e}, per-tile {old_err:.3e}, of "
+        f"max|grad| {scale:.3e} = {err / scale:.3e} / {old_err / scale:.3e} (bound "
+        f"{SPLAT_BWD_TOL:.0e}); culled by row, relative to the row's largest: "
+        f"{['%.1e' % e for e in by_row]}; rows 10-15 max {dead:.1e}, past the segments max "
+        f"{tail:.1e}; two launches bit-equal {again}; autograd path bit-identical {same}; "
+        f"the same bits on a given order {fixed}; kernel {ms:.4f} "
+        f"ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{100 * bound_ms / ms:.1f}%), segment-walk count {walk_ms:.4f} ms; in turns: culled "
+        f"{served_ms:.4f} ms, per-tile {other_ms:.4f} ms ({other_ms / served_ms:.2f}x); the "
+        f"culled kernel on the heaviest-first order made beforehand {sorted_ms:.4f} ms, on "
+        f"index order {index_ms:.4f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("kernels", f"splat composite backward ({what}) outside its error bound")
     return dict(shape=[R, rows, cap], calls_per_request=0, calls_per_train_step=calls_per_step,
-                max_abs_err=err, rel_err=err / scale, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                max_abs_err=err, rel_err=err / scale, per_tile_rel_err=old_err / scale, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms, live_pairs=live_pairs,
-                alive_points=alive_points, alive_share=alive_points / (256 * live_pairs))
+                alive_points=alive_points, alive_share=alive_points / (256 * live_pairs),
+                variant=splat.BWD_VARIANT_NAMES[splat.BWD_VARIANT_CULLED],
+                other_variant_ms=other_ms, served_variant_ms_in_turns=served_ms,
+                presorted_ms=sorted_ms, index_order_ms=index_ms)
 
 
 class _FusedSpatialFlag:
@@ -948,6 +1000,35 @@ def phase_spatial_times(torch, defines):
     say("spatial_times", f"built with {defines or 'no switch'}: x [{r}, {s}, {c}] ctx [{r}, "
         f"{kv_len}, {cc}] {ms:.4f} ms; by kernel (ms) "
         + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
+
+
+def phase_splat_bwd_times(torch, defines):
+    """CUDA-event ms of kernel 4's culled kernel, built with ``defines``, on
+    the 16-row 24-view 256² call and the 2-view 512² chunk of the kernels
+    phase, with the heaviest-first order formed in the call."""
+    from videomv_tpu_torch.ops import gaussian_splat as tgs
+    from videomv_tpu_torch.ops import splat
+
+    dev = torch.device("cuda", 0)
+    times = []
+    for size, views in ((SPLAT_SIZE, SPLAT_VIEWS), (TRAIN_RENDER_SIZE, TRAIN_VIEW_CHUNK)):
+        g, cv, cvp, tan = _synthetic_scene(torch, dev, size=size, views=views)
+        prep = {k: v[:, None] for k, v in tgs.prepare_gaussians(g).items()}
+        proj = [p[0] for p in tgs.project_prepared(prep, cv, cvp, size, tan)]
+        payload, ts, tc, _ = splat.bin_pairs(*proj, img_size=size,
+                                             max_pairs=tgs.pair_capacity(SPLAT_GAUSSIANS, size))
+        nts = size // splat.TILE
+        saved = splat.composite(payload, ts, tc, nts)
+        grad = torch.randn(saved.shape, generator=torch.Generator(device=dev).manual_seed(4),
+                           device=dev)
+        ms = _time_one(torch, lambda: splat.composite_backward(payload, ts, tc, saved, grad, nts))
+        times.append(f"{views} views at {size}² {ms:.4f} ms")
+    from videomv_tpu_torch.ops import _build
+
+    log = str(_build.build_info()["log"]).splitlines()
+    at = next(i for i, ln in enumerate(log) if "splat_composite_bwd_culled_kernel" in ln)
+    regs = next(ln.split(":", 1)[-1].strip() for ln in log[at:] if "registers" in ln)
+    say("splat_bwd_times", f"built with {defines or 'no switch'} ({regs}): " + "; ".join(times))
 
 
 def _ablation(kind, variants):
@@ -1156,7 +1237,8 @@ def main(argv=None):
         from videomv_tpu_torch.ops import _build
 
         _build.NVCC_FLAGS.extend("-D" + d for d in args.define.split(",") if d)
-    for kind, times in (("ffn", phase_ffn_times), ("spatial", phase_spatial_times)):
+    for kind, times in (("ffn", phase_ffn_times), ("spatial", phase_spatial_times),
+                        ("splat_bwd", phase_splat_bwd_times)):
         if f"{kind}_times" in phases:  # a child of the ablation: nothing else runs
             if args.build_only:
                 from videomv_tpu_torch.ops import _build
@@ -1171,6 +1253,8 @@ def main(argv=None):
         phase_ffn_ablation()
     if "spatial_ablation" in phases:
         _ablation("spatial", SPATIAL_ABLATIONS)
+    if "splat_bwd_ablation" in phases:
+        _ablation("splat_bwd", SPLAT_BWD_ABLATIONS)
     if "build" in phases or "kernels" in phases:
         phase_build()
     only = [s for s in args.kernels.split(",") if s] or None
@@ -2230,6 +2314,10 @@ def phase_train(torch):
             "composite backward kernel, 1 chunk": _time_one(
                 torch, lambda: splat.composite_backward(payload.detach(), ts, tc, out_tiles,
                                                         gtiles, nts), 5),
+            "composite backward, the per-tile kernel, 1 chunk": _time_one(
+                torch, lambda: splat.composite_backward(
+                    payload.detach(), ts, tc, out_tiles, gtiles, nts,
+                    variant=splat.BWD_VARIANT_PER_TILE), 5),
         }
         with torch.autocast("cuda", dtype=torch.bfloat16):
             pieces["LGM forward (autocast, no grad)"] = _time_one(

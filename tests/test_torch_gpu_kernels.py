@@ -2,8 +2,9 @@
 (head_dim 128, single-tile and odd-tile sequences, token counts that are not
 a tile multiple, the widest and narrowest C; the splat composite with both
 payloads and an overflowing pair capacity, bit-equal to the per-tile kernel,
-and on a render whose pairs pile up in a few tiles; its backward kernel
-against its twin and against autograd of the forward twin), the wrappers'
+and on a render whose pairs pile up in a few tiles; its two backward
+kernels, culled and per-tile, against their twin and autograd of the forward
+twin, on those renders, on degenerate pairs and on a NaN colour), the wrappers'
 input checks, the backward of the attention and FFN wrappers, the module
 dispatch, and the
 fused spatial-transformer block (other widths and contexts than the served
@@ -259,11 +260,11 @@ def test_splat_composite_culled_keeps_degenerate_pairs(cuda, packed):
     assert kern[0, t, 3].min().item() > 0.999
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_splat_composite_heavy_tiles(cuda, packed):
+def _heavy_bins(dev, packed):
     """A few tiles hold thousands of pairs and most hold none, over more
-    (view, tile) items than the persistent grid has CTAs: the heaviest-first
-    schedule's tail, items with no pairs, and a view left empty."""
+    (view, tile) items than a persistent grid has CTAs, with view 7 left
+    empty: 40 views at 256² of a seeded scene whose Gaussians crowd three
+    points. Returns the binned lists and the tiles per side."""
     import numpy as np
 
     from videomv_tpu_torch.data.cameras import (
@@ -283,18 +284,28 @@ def test_splat_composite_heavy_tiles(cuda, packed):
                         rs.uniform(0, 1, (n, 3))], axis=1).astype(np.float32)
     st = GSCameraSettings(input_size=size, output_size=size)
     cams = prepare_gs_training(orbit_c2w_opengl(views, 15.0, 2.0), st, ray_size=8)
-    prep = {k: v[None] for k, v in tgs.prepare_gaussians(torch.from_numpy(g).to(cuda)).items()}
-    proj = tgs.project_prepared(prep, torch.from_numpy(cams["cam_view"][0]).to(cuda),
-                                torch.from_numpy(cams["cam_view_proj"][0]).to(cuda), size,
+    prep = {k: v[None] for k, v in tgs.prepare_gaussians(torch.from_numpy(g).to(dev)).items()}
+    proj = tgs.project_prepared(prep, torch.from_numpy(cams["cam_view"][0]).to(dev),
+                                torch.from_numpy(cams["cam_view_proj"][0]).to(dev), size,
                                 st.tan_half_fov)
     payload, ts, tc, _ = splat.bin_pairs(*proj, img_size=size, max_pairs=1 << 17, packed=packed)
     tc[7] = 0  # an empty view
     nts = size // 16
     # at most 8 CTAs of 256 threads fit an SM's 2,048 threads
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert views * nts * nts > 2 * 8 * sms
     counts = tc.flatten().sort(descending=True).values
     assert counts[0] >= 2000 and counts[len(counts) // 2] < 64, counts[:8]
+    return payload, ts, tc, nts
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_splat_composite_heavy_tiles(cuda, packed):
+    """The heaviest-first schedule's tail, items with no pairs, and a view
+    left empty (``_heavy_bins``)."""
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, nts = _heavy_bins(cuda, packed)
     kern = splat.composite(payload, ts, tc, nts)
     old = splat._composite_forward(payload, ts, tc, nts, variant=splat.VARIANT_PER_TILE)
     torch.cuda.synchronize()
@@ -322,41 +333,155 @@ def test_splat_composite_rejects_what_it_cannot_take(cuda):
         splat.composite(payload.requires_grad_(), ts, tc, 4)  # 8 rows under grad
 
 
+def _same_bits(a, b):
+    """Bit for bit, NaNs included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bwd_launches(payload, ts, tc, nts, variant, seed=7):
+    """The backward kernel named by ``variant`` on the culled forward's output
+    and a seeded gradient, with the checks every input gets: one launch
+    counted; rows 10-15 and the columns past each view's last segment exactly
+    zero; two launches bit-equal (one writer per pair, no atomics); the
+    autograd path (kernel forward, served backward) bit-identical to the
+    served kernel's direct call. Returns (kernel's dpayload, saved, grad)."""
+    from videomv_tpu_torch.ops import splat
+
+    saved = splat.composite(payload, ts, tc, nts)
+    gen = torch.Generator(device=payload.device).manual_seed(seed)
+    grad = torch.randn(saved.shape, generator=gen, device=payload.device)
+    ops.reset_launch_counts()
+    kern = splat.composite_backward(payload, ts, tc, saved, grad, nts, variant=variant)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["splat_composite_bwd"] == 1
+    assert kern[:, 10:].abs().max().item() == 0.0
+    for r, end in enumerate((ts[:, -1] + tc[:, -1]).tolist()):
+        if tc[r].sum() == 0:
+            assert kern[r].abs().max().item() == 0.0  # an empty view
+        elif end < payload.shape[-1]:
+            assert kern[r, :, end:].abs().max().item() == 0.0
+    again = splat.composite_backward(payload, ts, tc, saved, grad, nts, variant=variant)
+    assert _same_bits(kern, again)
+    served = splat.composite_backward(payload, ts, tc, saved, grad, nts)
+    p = payload.clone().requires_grad_()
+    ops.reset_launch_counts()
+    (auto,) = torch.autograd.grad(splat.composite(p, ts, tc, nts), p, grad)
+    assert ops.launch_counts()["splat_composite"] == 1
+    assert ops.launch_counts()["splat_composite_bwd"] == 1
+    assert _same_bits(auto, served)
+    return kern, saved, grad
+
+
+BWD_VARIANTS = ["BWD_VARIANT_CULLED", "BWD_VARIANT_PER_TILE"]
+
+
+@pytest.mark.parametrize("variant", BWD_VARIANTS)
 @pytest.mark.parametrize("max_pairs", [1 << 15, 2048])  # 2048 overflows
-def test_splat_composite_backward_matches_its_twin(cuda, max_pairs):
+def test_splat_composite_backward_matches_its_twin(cuda, max_pairs, variant):
     from videomv_tpu_torch.ops import splat
 
     payload, ts, tc, _ = _splat_bins(cuda, False, max_pairs)
-    saved = splat.composite(payload, ts, tc, 4)
-    gen = torch.Generator(device=cuda).manual_seed(7)
-    grad = torch.randn(saved.shape, generator=gen, device=cuda)
-    ops.reset_launch_counts()
-    kern = splat.composite_backward(payload, ts, tc, saved, grad, 4)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["splat_composite_bwd"] == 1
+    kern, saved, grad = _bwd_launches(payload, ts, tc, 4, getattr(splat, variant))
     twin = splat.composite_backward_reference(payload, ts, tc, saved, grad, 4)
     scale = twin.abs().max().item()
     assert scale > 1.0
     # fp32 both; the 256-pixel sums in another order
     assert (kern - twin).abs().max().item() <= 2e-4 * scale
-    assert kern[:, 10:].abs().max().item() == 0.0
-    live = int(tc[0].sum())
-    if live < payload.shape[-1]:  # beyond the last segment (none when the capacity is full)
-        assert kern[0, :, live:].abs().max().item() == 0.0
-    # two launches give the same bits (one writer per pair, no atomics)
-    again = splat.composite_backward(payload, ts, tc, saved, grad, 4)
-    assert torch.equal(kern, again)
-    # the autograd.Function: kernel forward and kernel backward
-    p = payload.clone().requires_grad_()
-    ops.reset_launch_counts()
-    (auto,) = torch.autograd.grad(splat.composite(p, ts, tc, 4), p, grad)
-    assert ops.launch_counts()["splat_composite"] == 1
-    assert ops.launch_counts()["splat_composite_bwd"] == 1
-    assert torch.equal(auto, kern)
     # and autograd through the forward twin agrees
     p = payload.clone().requires_grad_()
     (ref,) = torch.autograd.grad(splat.composite_reference(p, ts, tc, 4), p, grad)
     assert (kern - ref).abs().max().item() <= 2e-4 * scale
+
+
+def _tile_columns(ts, tc, view, tile):
+    """The columns of one tile's segment, as a slice."""
+    start, count = int(ts[view, tile]), int(tc[view, tile])
+    return slice(start, start + count)
+
+
+@pytest.mark.parametrize("variant", BWD_VARIANTS)
+def test_splat_composite_backward_keeps_degenerate_pairs(cuda, variant):
+    """The forward's degenerate pairs (a NaN opacity, a NaN or indefinite
+    conic, a conic whose products overflow, means far outside the tile) in
+    the busiest segment reach every block in the culled backward too. The
+    twin takes a NaN opacity as NaN where the kernels clamp it to 0.99, so
+    the tile that holds them is held against the per-tile kernel (the same
+    NaNs, the rest within 2e-4), every other column against the twin."""
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, _ = _splat_bins(cuda, False, 1 << 15, views=2)
+    t = int(tc[0].argmax())
+    assert int(tc[0, t]) > 12
+    at = [int(ts[0, t]) + 3 * k for k in range(5)]
+    payload[0, :2, at] = -1000.0                    # the means, far outside the tile
+    payload[0, 2:5, at[1]] = float("nan")           # a NaN conic
+    payload[0, 2, at[2]] = -1.0                     # a <= 0
+    payload[0, 2:5, at[3]] = torch.tensor([1.0, 2.0, 1.0], device=cuda)  # det < 0
+    payload[0, 2, at[4]] = payload[0, 4, at[4]] = 1e30  # a c overflows
+    payload[0, 8, at[0]] = float("nan")             # a NaN opacity
+    kern, saved, grad = _bwd_launches(payload, ts, tc, 4, getattr(splat, variant))
+    old = splat.composite_backward(payload, ts, tc, saved, grad, 4,
+                                   variant=splat.BWD_VARIANT_PER_TILE)
+    cols = _tile_columns(ts, tc, 0, t)
+    k, o = kern[0, :10, cols], old[0, :10, cols]
+    assert torch.equal(k.isnan(), o.isnan()) and k.isnan().any()
+    fin = ~k.isnan()
+    assert (k[fin] - o[fin]).abs().max().item() <= 2e-4 * o[fin].abs().max().item()
+    twin = splat.composite_backward_reference(payload, ts, tc, saved, grad, 4)
+    rest = torch.ones_like(kern, dtype=torch.bool)
+    rest[0, :, cols] = False
+    scale = twin[rest].abs().max().item()
+    assert (kern[rest] - twin[rest]).abs().max().item() <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("variant", BWD_VARIANTS)
+def test_splat_composite_backward_heavy_tiles(cuda, variant):
+    """The backward on ``_heavy_bins``' 16-row payload: the schedule's tail,
+    items with no pairs, an empty view (zero from its first column)."""
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, nts = _heavy_bins(cuda, False)
+    kern, saved, grad = _bwd_launches(payload, ts, tc, nts, getattr(splat, variant))
+    twin = splat.composite_backward_reference(payload, ts, tc, saved, grad, nts)
+    scale = twin.abs().max().item()
+    assert scale > 1.0
+    assert (kern - twin).abs().max().item() <= 2e-4 * scale
+
+
+def test_splat_composite_backward_nan_colour(cuda):
+    """A NaN colour on a small pair (its mask neither empty nor full): at a
+    point where the pair is dead, g.c * w = NaN * 0 enters the prefix. The
+    per-tile kernel lets it into the pixels of every two-row warp where the
+    pair is alive at some lane, the culled kernel into the 8 x 4 blocks its
+    mask keeps, which the culled forward's output already carries as NaN
+    (it blends the pair there): so the culled kernel's NaNs are a subset of
+    the per-tile kernel's, both agree within 2e-4 wherever both are finite,
+    the pair's own colour gradient stays finite, and every other tile
+    matches the twin."""
+    from videomv_tpu_torch.ops import splat
+
+    payload, ts, tc, _ = _splat_bins(cuda, False, 1 << 15, views=2)
+    masks = splat.cull_masks(payload, ts, tc, 4)
+    t = int(tc[0].argmax())
+    cols = _tile_columns(ts, tc, 0, t)
+    m = masks[0, cols].long()
+    small = ((m != 0) & (m != 255) & (torch.arange(m.numel(), device=cuda) > 8)).nonzero()
+    at = int(ts[0, t]) + int(small[0])
+    payload[0, 6, at] = float("nan")                # its green
+    kern, saved, grad = _bwd_launches(payload, ts, tc, 4, splat.BWD_VARIANT_CULLED)
+    old = splat.composite_backward(payload, ts, tc, saved, grad, 4,
+                                   variant=splat.BWD_VARIANT_PER_TILE)
+    assert kern.isnan().any()
+    assert not (kern.isnan() & ~old.isnan()).any()
+    both = ~kern.isnan() & ~old.isnan()
+    assert (kern[both] - old[both]).abs().max().item() <= 2e-4 * old[both].abs().max().item()
+    assert torch.isfinite(kern[0, [5, 6, 7, 9], at]).all()
+    rest = torch.ones_like(kern, dtype=torch.bool)
+    rest[0, :, cols] = False
+    assert not kern[rest].isnan().any()
+    twin = splat.composite_backward_reference(payload, ts, tc, saved, grad, 4)
+    scale = twin[rest].abs().max().item()
+    assert (kern[rest] - twin[rest]).abs().max().item() <= 2e-4 * scale
 
 
 def test_splat_composite_backward_rejects_what_it_cannot_take(cuda):
@@ -373,6 +498,10 @@ def test_splat_composite_backward_rejects_what_it_cannot_take(cuda):
         splat.composite_backward(payload, ts, tc, saved, grad.cpu(), 4)
     with pytest.raises(ValueError):
         splat.composite_backward(payload[:, :8].contiguous(), ts, tc, saved, grad, 4)
+    with pytest.raises(ValueError, match="variant"):
+        splat.composite_backward(payload, ts, tc, saved, grad, 4, variant=7)
+    with pytest.raises(ValueError, match="order"):
+        splat.composite_backward(payload, ts, tc, saved, grad, 4, order=ts.flatten()[:5])
 
 
 def test_render_gradient_through_the_kernels_matches_the_dense_oracle(cuda):

@@ -111,9 +111,11 @@ def test_every_cuda_source_is_built_and_bound():
         assert "// Replaces: videomv_tpu/ops/" in text, path
     # the same names, and as many arguments as the ctypes signature passes
     assert entry == {name: len(sig) for name, sig in _build._SIGNATURES.items()}
-    # kernels 1, 2 and 5 share their tile code through headers, not copies
+    # kernels 1, 2 and 5 share their tile code through headers, not copies,
+    # and so do the splat composite's forward and backward their culling
     for hdr, users in (("attention_tile.cuh", ("flash_attention.cu", "fused_spatial.cu")),
-                       ("ffn_tile.cuh", ("fused_ffn.cu", "fused_spatial.cu"))):
+                       ("ffn_tile.cuh", ("fused_ffn.cu", "fused_spatial.cu")),
+                       ("splat_cull.cuh", ("splat_composite.cu", "splat_composite_bwd.cu"))):
         assert os.path.exists(os.path.join(_build.CSRC_DIR, hdr))
         for u in users:
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)

@@ -2,9 +2,11 @@
 ``composite_backward_reference`` (the plain twin of the CUDA kernel
 ``csrc/splat_composite_bwd.cu``) against autograd through the forward twin
 and against the JAX package's Pallas backward kernel run in interpret mode
-on the same payload and tile lists; the gradient of a loss with respect to
-the Gaussians through the binned render against ``jax.grad`` through the
-JAX dense rasterizer; and the packed payload under grad, which raises."""
+on the same payload and tile lists, with and without the culled kernel's
+masks (``cull_masks``: the twin with every point outside them forced dead);
+the gradient of a loss with respect to the Gaussians through the binned
+render against ``jax.grad`` through the JAX dense rasterizer; and the packed
+payload under grad, which raises."""
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +92,72 @@ def test_backward_twin_matches_pallas_backward_interpret(binned, interpret):
     assert np.abs(want).max() > 1.0  # a gradient worth comparing
     assert _rel_by_row(got, want) <= REL_TOL
     np.testing.assert_array_equal(got[10:], want[10:])
+
+
+def _planted(binned):
+    """The binned view with a NaN opacity and a degenerate (indefinite, finite)
+    conic planted in the busiest segment, its forward output recomputed: the
+    pairs the culling must keep on every block."""
+    (payload, ts, tc), _, _, grad = binned
+    pay, ts_, tc_ = np.array(payload), np.array(ts), np.array(tc)
+    s0 = int(ts_[int(tc_.argmax())])
+    pay[8, s0 + 5] = np.nan                  # a NaN opacity
+    pay[2:5, s0 + 9] = [1.0, 2.0, 1.0]       # det < 0
+    tp, tts, ttc = (torch.from_numpy(a)[None] for a in (pay, ts_, tc_))
+    saved = splat.composite_reference(tp, tts, ttc, NTS)
+    return (jnp.asarray(pay), ts, tc), (tp, tts, ttc), saved, grad, (s0 + 5, s0 + 9)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_masked_backward_twin_is_bit_equal_and_matches_pallas_interpret(binned, interpret,
+                                                                        planted):
+    """With the culled kernel's masks the backward twin drops only dead
+    points: bit-equal to the unmasked twin (NaNs in the same places) and
+    within ``REL_TOL`` of the Pallas backward; a mask that drops alive blocks
+    changes the gradient. With a NaN opacity in the view (which both
+    packages' forwards spread over its tile) the Pallas kernel also carries
+    NaNs into the neighbouring tiles' columns of its shared 512-pair chunks:
+    every NaN of the twin is one of the Pallas kernel's, and the rest agree."""
+    if planted:
+        (payload, ts, tc), (tp, tts, ttc), saved, grad, at = _planted(binned)
+    else:
+        (payload, ts, tc), (tp, tts, ttc), saved, grad = binned
+    masks = splat.cull_masks(tp, tts, ttc, NTS)
+    if planted:
+        assert [masks[0, i].item() for i in at] == [255, 255]
+    assert 0 < (masks > 0).sum() and (masks[:, :int(ttc.sum())] != 255).any()
+    plain = splat.composite_backward_reference(tp, tts, ttc, saved, grad, NTS)
+    masked = splat.composite_backward_reference(tp, tts, ttc, saved, grad, NTS, masks=masks)
+    np.testing.assert_array_equal(masked.numpy(), plain.numpy())  # NaN where NaN
+    assert plain.isnan().any() == planted
+    out_tiles = jsp._composite_call(payload, ts, tc, NTS)
+    want = np.asarray(jsp._composite_bwd_call(payload, ts, tc, out_tiles,
+                                              jnp.asarray(grad[0].numpy()), NTS))
+    got = masked[0].numpy()
+    assert not (np.isnan(got) & ~np.isnan(want)).any()
+    fin = np.isfinite(want)
+    compared = 0
+    for r in range(10):
+        scale = np.abs(np.where(fin[r], want[r], 0.0)).max()
+        if scale > 0:
+            compared += 1
+            assert np.abs(got[r][fin[r]] - want[r][fin[r]]).max() / scale <= REL_TOL, r
+    assert compared >= (6 if planted else 10)
+    np.testing.assert_array_equal(got[10:], want[10:])
+    # a mask that leaves out alive blocks does change the gradient
+    dropped = splat.composite_backward_reference(tp, tts, ttc, saved, grad, NTS,
+                                                 masks=masks & 0xF0)
+    both = ~plain.isnan() & ~dropped.isnan()
+    assert not torch.equal(dropped[both], plain[both])
+
+
+def test_backward_variants_on_cpu_run_the_twin(binned):
+    """On CPU tensors every backward variant is the twin."""
+    _, (tp, tts, ttc), saved, grad = binned
+    want = splat.composite_backward_reference(tp, tts, ttc, saved, grad, NTS)
+    for variant in splat.BWD_VARIANT_NAMES:
+        got = splat.composite_backward(tp, tts, ttc, saved, grad, NTS, variant=variant)
+        assert torch.equal(got, want)
 
 
 def test_composite_function_backward_runs_the_twin_on_cpu(binned):

@@ -230,12 +230,19 @@ def test_heaviest_first_is_a_sorted_permutation(seed):
 
 
 def test_block_geometry_matches_the_kernel_source():
-    """The mirror's warp blocks and bit order are the CUDA kernel's."""
-    src = open(os.path.join(_build.CSRC_DIR, "splat_composite.cu")).read()
+    """The mirror's warp blocks and bit order are the CUDA kernels': the block
+    shape and the margins from the header both culled kernels include, and
+    the forward's pixel of each lane in both (the backward has no geometry of
+    its own)."""
+    src = open(os.path.join(_build.CSRC_DIR, "splat_cull.cuh")).read()
     assert re.search(r"kBlockW = (\d+), kBlockH = (\d+);", src).groups() == (
         str(splat.BLOCK_W), str(splat.BLOCK_H))
-    assert "const int ix = (warp & 1) * kBlockW + (lane & (kBlockW - 1));" in src
-    assert "const int iy = (warp >> 1) * kBlockH + (lane >> 3);" in src
+    for kernel in ("splat_composite.cu", "splat_composite_bwd.cu"):
+        text = open(os.path.join(_build.CSRC_DIR, kernel)).read()
+        assert '#include "splat_cull.cuh"' in text, kernel
+        assert "kBlockW =" not in text and "kBlockH =" not in text, kernel
+        assert "const int ix = (warp & 1) * kBlockW + (lane & (kBlockW - 1));" in text, kernel
+        assert "const int iy = (warp >> 1) * kBlockH + (lane >> 3);" in text, kernel
     blocks = splat.pixel_blocks()
     # warp w holds its 32 lanes' pixels; the mirror names that warp's block
     for warp in range(8):

@@ -44,7 +44,11 @@ _SIGNATURES = {
     # payload, tile_start, tile_count, order (or null), scratch, out, then R,
     # rows, capacity, n_tiles_side, variant
     "vmv_splat_composite_fwd": [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p],
-    "vmv_splat_composite_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
+    # payload, tile_start, tile_count, saved, grad, order (or null), scratch,
+    # dpayload, then R, capacity, n_tiles_side, variant
+    "vmv_splat_composite_bwd": [_c_void_p] * 8 + [_c_int] * 4 + [_c_void_p],
+    # the culled backward kernel's dynamic shared memory, in bytes
+    "vmv_splat_composite_bwd_smem": [],
     # a host array of the device pointers, then R, S, C, L, Cc, heads, inner,
     # variant
     "vmv_fused_spatial_fwd": [_c_void_p] + [_c_int] * 8 + [_c_void_p],

@@ -32,6 +32,10 @@ payload, segments and forward output. On a CUDA tensor the backward
 launches its kernel (``BWD_LAUNCHES`` counts those launches) or raises; on a
 CPU tensor it runs ``composite_backward_reference``. Every pair belongs to
 one tile, so the gradient has one writer per column and is deterministic.
+The backward kernel served (``BWD_VARIANT_CULLED``) takes the culled
+forward's schedule and masks; the first port's (``BWD_VARIANT_PER_TILE``)
+stays for comparison; the two agree to rounding (the order of the sums over
+a tile's pixels, and one divide).
 The binning around it (gathers and selects) differentiates through
 autograd: the payload gather's backward scatter-adds each pair's gradient
 onto its Gaussian. Only the 16-row payload is differentiable; the packed
@@ -61,6 +65,9 @@ __all__ = [
     "BLOCK_H",
     "BLOCK_W",
     "BWD_LAUNCHES",
+    "BWD_VARIANT_CULLED",
+    "BWD_VARIANT_NAMES",
+    "BWD_VARIANT_PER_TILE",
     "LAUNCHES",
     "TILE",
     "VARIANT_CULLED",
@@ -88,11 +95,16 @@ BWD_LAUNCHES = 0
 # is launched only when a caller names it, to compare the two.
 VARIANT_PER_TILE, VARIANT_CULLED = 0, 1
 VARIANT_NAMES = {VARIANT_PER_TILE: "per-tile", VARIANT_CULLED: "culled"}
-# a warp's pixel block in the culled kernel: 8 columns x 4 rows, 8 a tile
+# The two kernels behind ``vmv_splat_composite_bwd`` (csrc/splat_composite_bwd.cu),
+# likewise: the culled one serves, the per-tile one of the first port runs
+# only when a caller names it.
+BWD_VARIANT_PER_TILE, BWD_VARIANT_CULLED = 0, 1
+BWD_VARIANT_NAMES = {BWD_VARIANT_PER_TILE: "per-tile", BWD_VARIANT_CULLED: "culled"}
+# a warp's pixel block in the culled kernels: 8 columns x 4 rows, 8 a tile
 BLOCK_W, BLOCK_H = 8, 4
 _ALPHA_MIN = 1.0 / 255.0  # the cut; as an fp32 constant where it is compared
-# the culling box's margins, as csrc/splat_composite.cu names them (its
-# header says what each covers)
+# the culling box's margins, as csrc/splat_cull.cuh names them (its header
+# says what each covers)
 CULL_MARGINS = {"kCutMargin": 2.0 ** -10, "kTauMargin": 2.0 ** -12,
                 "kPowerErr": 2.0 ** -19, "kDetErr": 2.0 ** -22, "kQErr": 2.0 ** -20,
                 "kMeanMax": 2.0 ** 20}
@@ -241,7 +253,7 @@ def _cull_extents(mx, my, a, b, c, op):
     """The level ``t`` of Q = ½ qᵀMq that bounds each pair's alive points,
     the half-extents ``(ex, ey)`` of its conservative box, whether the pair
     is well formed (else it keeps every block) and whether it reaches no
-    pixel: the fp32 operations of ``cull_box`` in csrc/splat_composite.cu,
+    pixel: the fp32 operations of ``cull_box`` in csrc/splat_cull.cuh,
     in its order, each rounded (only ``torch.log`` may differ from the
     kernel's ``logf`` by an ulp), whose header states the margin. NaN
     extents keep every block."""
@@ -264,7 +276,7 @@ def _cull_extents(mx, my, a, b, c, op):
 
 def _q_low(a, b, c, x, y):
     """A lower bound of Q = ½(a x² + c y²) + b x y at (x, y) through the
-    rounding, as ``q_low`` in csrc/splat_composite.cu."""
+    rounding, as ``q_low`` in csrc/splat_cull.cuh."""
     half = 0.5 * ((a * x) * x + (c * y) * y)
     bxy = (b * x) * y
     return (half + bxy) - CULL_MARGINS["kQErr"] * (half + bxy.abs())
@@ -406,8 +418,8 @@ def _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side):
 
 def composite_backward_reference(payload: torch.Tensor, tile_start: torch.Tensor,
                                  tile_count: torch.Tensor, saved: torch.Tensor,
-                                 grad: torch.Tensor, n_tiles_side: int, chunk: int = 64
-                                 ) -> torch.Tensor:
+                                 grad: torch.Tensor, n_tiles_side: int, chunk: int = 64,
+                                 masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain twin of the backward kernel (the JAX ``_tile_bwd_kernel``'s
     math): the VJP of ``composite_reference`` from the forward's output
     ``saved`` and its gradient ``grad`` (both ``[R, T, 5, 256]``). Walks the
@@ -419,7 +431,11 @@ def composite_backward_reference(payload: torch.Tensor, tile_start: torch.Tensor
     with dpower = dα·α and dopacity = dα·exp(power), both zero where the pair
     is dead or α sits on its 0.99 clamp. Returns ``dpayload [R, 16, P]``:
     rows 0-1 d mean2d, 2-4 d inv_cov, 5-7 d rgb, 8 d opacity, 9 d depth, the
-    rest (and every pair outside a segment) zero."""
+    rest (and every pair outside a segment) zero. With ``masks``
+    (``cull_masks``' ``[R, P]``) every point outside its pair's mask is also
+    taken as dead, as the culled kernel skips the (warp block, pair)
+    combinations whose bit is clear. (The kernel also keeps a non-finite
+    colour out of such a block's prefix, where this twin forms g·c·0 = NaN.)"""
     R, rows, P = payload.shape
     if rows != 16:
         raise ValueError("splat composite backward: only the 16-row payload is differentiable")
@@ -440,6 +456,9 @@ def composite_backward_reference(payload: torch.Tensor, tile_start: torch.Tensor
     cum = torch.zeros(R * T, TILE * TILE, device=dev)
     dflat = torch.zeros(R * P, rows, device=dev)
     j = torch.arange(chunk, device=dev)
+    if masks is not None:
+        flat_masks = masks.reshape(R * P).long()
+        blocks = pixel_blocks(dev)[None, :, None]                 # [1, 256, 1]
     n_chunks = -(-int(count.max()) // chunk) if count.numel() else 0
     for ci in range(n_chunks):
         pos = ci * chunk + j
@@ -455,6 +474,8 @@ def composite_backward_reference(payload: torch.Tensor, tile_start: torch.Tensor
         raw = d[:, None, :, 8] * expp
         alpha = torch.clamp_max(raw, 0.99)
         dead = (power > 0.0) | (alpha < 1.0 / 255.0) | ~live[:, None, :]
+        if masks is not None:
+            dead = dead | (((flat_masks[gidx][:, None, :] >> blocks) & 1) == 0)
         alpha = torch.where(dead, torch.zeros_like(alpha), alpha)
         gmask = ~dead & (raw < 0.99)
         logs = torch.log1p(-alpha)
@@ -483,18 +504,38 @@ def composite_backward_reference(payload: torch.Tensor, tile_start: torch.Tensor
     return dflat.reshape(R, P, rows).transpose(1, 2).contiguous()
 
 
+def _culled_scratch(tile_count: torch.Tensor, order: Optional[torch.Tensor]) -> torch.Tensor:
+    """The int32 ``[2 R·T + 1]`` scratch of a culled kernel's C entry point
+    (its item counter, then, when the entry point forms the order, the order
+    and its ranks), after checking the item count and a caller's ``order``."""
+    n = tile_count.numel()
+    if n > MAX_CULLED_ITEMS:
+        raise ValueError(f"splat composite: {n} (view, tile) items, more than the "
+                         f"{MAX_CULLED_ITEMS} the culled kernels' order takes")
+    if order is not None and (order.dtype != torch.int32 or order.device != tile_count.device
+                              or tuple(order.shape) != (n,) or not order.is_contiguous()):
+        raise ValueError(f"splat composite: order must be contiguous int32 [{n}] on "
+                         f"{tile_count.device}")
+    return torch.empty(2 * n + 1, dtype=torch.int32, device=tile_count.device)
+
+
 def composite_backward(payload: torch.Tensor, tile_start: torch.Tensor,
                        tile_count: torch.Tensor, saved: torch.Tensor, grad: torch.Tensor,
-                       n_tiles_side: int) -> torch.Tensor:
+                       n_tiles_side: int, variant: int = BWD_VARIANT_CULLED,
+                       order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The composite's VJP: ``dpayload [R, 16, P]`` from the 16-row payload,
     the segments, the forward's output and its gradient (both ``[R, T, 5,
     256]``). The CUDA kernel, one launch for all R views, on a CUDA tensor;
-    the plain twin on a CPU tensor."""
+    the plain twin on a CPU tensor. ``variant`` names the kernel, and
+    ``order`` replaces the heaviest-first order the culled kernel's entry
+    point forms, as for ``_composite_forward``."""
     global BWD_LAUNCHES
     if not payload.is_cuda:
         return composite_backward_reference(payload, tile_start, tile_count, saved, grad,
                                             n_tiles_side)
     _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side)
+    if variant not in BWD_VARIANT_NAMES:
+        raise ValueError(f"splat composite backward: unknown variant {variant}")
     R, rows, P = payload.shape
     if rows != 16:
         raise ValueError("splat composite backward: only the 16-row payload is differentiable")
@@ -505,12 +546,18 @@ def composite_backward(payload: torch.Tensor, tile_start: torch.Tensor,
             raise ValueError(f"splat composite backward: {name} must be contiguous float32 "
                              f"{list(tiles)} on {payload.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    scratch = None
+    if variant == BWD_VARIANT_PER_TILE:
+        order = None
+    else:
+        scratch = _culled_scratch(tile_count, order)
     dpayload = torch.empty_like(payload)
     lib = _build.load_library()
     err = lib.vmv_splat_composite_bwd(
         payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), saved.data_ptr(),
-        grad.data_ptr(), dpayload.data_ptr(), R, P, n_tiles_side,
-        torch.cuda.current_stream(payload.device).cuda_stream)
+        grad.data_ptr(), None if order is None else order.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), dpayload.data_ptr(), R, P,
+        n_tiles_side, variant, torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(err, "vmv_splat_composite_bwd")
     BWD_LAUNCHES += 1
     return dpayload
@@ -532,19 +579,9 @@ def _composite_forward(payload, tile_start, tile_count, n_tiles_side,
     R, rows, P = payload.shape
     out = torch.empty((R, n_tiles_side * n_tiles_side, 5, TILE * TILE),
                       device=payload.device, dtype=torch.float32)
-    n = tile_count.numel()
     scratch = None
     if variant == VARIANT_CULLED:
-        if n > MAX_CULLED_ITEMS:
-            raise ValueError(f"splat composite: {n} (view, tile) items, more than the "
-                             f"{MAX_CULLED_ITEMS} the culled kernel's order takes")
-        # the counter, then (when the entry point forms the order) the order
-        # and its ranks
-        scratch = torch.empty(2 * n + 1, dtype=torch.int32, device=payload.device)
-        if order is not None and (order.dtype != torch.int32 or order.device != payload.device
-                                  or tuple(order.shape) != (n,) or not order.is_contiguous()):
-            raise ValueError(f"splat composite: order must be contiguous int32 [{n}] on "
-                             f"{payload.device}")
+        scratch = _culled_scratch(tile_count, order)
     else:
         order = None
     lib = _build.load_library()
