@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (videomv_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, one card, ~9 minutes
+    python3 chip_smoke.py            # every phase, one card, ~12 minutes
 
 Phases (each prints its lines; a failed phase exits non-zero):
   1. environment: torch/CUDA versions, device, power limit, optional deps;
@@ -60,7 +60,23 @@ Phases (each prints its lines; a failed phase exits non-zero):
      LGM changed and the frozen towers bit-identical; three more steps by
      parts under CUDA events; the gradient through kernels 3 + 4 against
      their twins, and one step's LGM gradient bf16 with the kernels against
-     fp32 plain; a save / restore round trip; the training CLI once.
+     fp32 plain; a save / restore round trip; the training CLI once;
+ 10. unet_train: configs/t2v_train.yaml as shipped (the plain UNet finetune:
+     UNetSD_T2VBase of 1.41 B parameters trained in fp32 under bf16 autocast
+     with block checkpointing, frozen VAE and text tower, AdamW with the SD
+     keys' gradients at 0.5) with seeded weights — T2VTrainer takes 3 steps
+     at batch 2 on the synthetic dataset with asserted launch counts by
+     shape, a finite loss, every UNet parameter moved and the frozen towers
+     bit-identical; a step by parts under CUDA events (encode, forward,
+     backward, optimizer, an EMA lerp), the host wall, the device busy share
+     of a step under torch.profiler and the peak memory; the attention twin's
+     backward alone; one step's UNet gradient bf16 with kernel 1 vs fp32
+     plain; the visualisation hook once; a save / restore round trip of the
+     full state; the training CLI
+     at the shipped batch of 8; then configs/t2v_train_laion.yaml on a shard
+     written into workspace/, 4 steps with an image step (f = 1) every 2nd
+     at the shipped image batch of 196 and video batch 16 (the shipped 24
+     does not fit in 80 GB).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. There is no CPU fallback: with
 no CUDA device the script fails before printing any result.
@@ -68,7 +84,9 @@ no CUDA device the script fails before printing any result.
 ``--phases env,build,kernels`` runs a subset (for bring-up of one part);
 ``--kernels geglu_ffn,flash_attention`` cuts the kernels phase to the named
 kernels; ``--phases env,ffn_ablation`` (``spatial_ablation``,
-``splat_bwd_ablation``) times kernel 2 (5, 4) with parts compiled out.
+``splat_bwd_ablation``) times kernel 2 (5, 4) with parts compiled out;
+``--phases env,unet_train_memory`` takes one joint-LAION step at each batch of
+UNET_TRAIN_MEMORY_BATCHES and prints its peak memory or its out-of-memory error.
 """
 
 from __future__ import annotations
@@ -187,6 +205,42 @@ TRAIN_GRAD_MIN_COS = 0.9
 TRAIN_GRAD_NORM_RATIO = (0.8, 1.25)
 TRAIN_OPTS = ["UNet.use_lgm_refine", "True", "save_ckp_interval", "0",
               "log_dir", "workspace/chip_smoke_train"]
+# The plain UNet finetune of configs/t2v_train.yaml as shipped (dim 320,
+# 24 views, block checkpointing on) at batch 2: kernel 1 serves the self-
+# attention of the five 32² and the five 16² SpatialTransformers once in the
+# forward and once more in each checkpointed block's recomputation; the
+# backward goes through its plain twin. Kernels 2 and 5 stay closed in training
+# mode and nothing renders: 20 launches a step, (48, 1024, 5, 64) and
+# (48, 256, 10, 64) ten each. An image step of the joint LAION finetune (f = 1)
+# launches the same twenty at its own row count.
+UNET_TRAIN_STEPS, UNET_TRAIN_BATCH, UNET_TRAIN_VIEWS = 3, 2, 24
+
+
+def unet_train_attn_shapes(rows):
+    return {(rows, 1024, 5, 64): 10, (rows, 256, 10, 64): 10}
+
+
+UNET_TRAIN_LAUNCHES = {"flash_attention": 20, "geglu_ffn": 0, "splat_composite": 0,
+                       "splat_composite_bwd": 0, "fused_spatial": 0}
+UNET_TRAIN_OPTS = ["save_ckp_interval", "0", "viz_interval", "0",
+                   "log_dir", "workspace/chip_smoke_unet_train"]
+# the joint LAION run of configs/t2v_train_laion.yaml: 4 steps with an image
+# step every 2nd (shipped: every 4th), the image steps at the shipped
+# batch_sizes["1"] and the video steps at UNET_TRAIN_LAION_BATCH: the shipped
+# 24 runs out of the card's memory (the plain attention backward's fp32
+# logits grow with the rows; `--phases env,unet_train_memory`), 16 fits
+UNET_TRAIN_IMAGE_EVERY, UNET_TRAIN_IMAGE_BATCH, UNET_TRAIN_LAION_STEPS = 2, 196, 4
+UNET_TRAIN_LAION_BATCH = 16
+# the CLI run's batch: the shipped batch_sizes["24"] of configs/t2v_train.yaml
+UNET_TRAIN_CLI_BATCH = 8
+# kernel 1's row counts in the unet_train phase that no served path gives it:
+# the CLI's, the LAION run's image steps' and its video steps'
+UNET_TRAIN_CHECK_ROWS = (UNET_TRAIN_CLI_BATCH * UNET_TRAIN_VIEWS, UNET_TRAIN_IMAGE_BATCH,
+                         UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS)
+# `--phases env,unet_train_memory` takes one step of configs/t2v_train_laion.yaml
+# (EMA on) at each (frames, batch) and prints its peak memory and time, or the
+# out-of-memory error where the card cannot hold it
+UNET_TRAIN_MEMORY_BATCHES = ((1, 196), (24, 8), (24, 16), (24, 24))
 # one refine render: 24 views at 256² of the LGM's 65,536 Gaussians
 SPLAT_VIEWS, SPLAT_SIZE, SPLAT_GAUSSIANS = 24, 256, 65536
 # kernel error vs fp32 must stay within 2x the plain twin's error + this
@@ -244,13 +298,14 @@ SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
                           for p in ("packed", "fp32"))
 # kernel 4's two variants: the same report
 SPLAT_BWD_KERNELS = ("splat_composite_bwd_culled_kernel", "splat_composite_bwd_kernel")
-PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train")
+PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train",
+          "unet_train")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
 # what each part costs), one child process per build (`ffn_times`).
 EXTRA_PHASES = ("ffn_ablation", "ffn_times", "spatial_ablation", "spatial_times",
-                "splat_bwd_ablation", "splat_bwd_times")
+                "splat_bwd_ablation", "splat_bwd_times", "unet_train_memory")
 # `--phases env,spatial_ablation` does the same for kernel 5's wgmma kernels at
 # the served I2V shape (the VMV_SP_* switches of csrc/fused_spatial.cu), with
 # each __global__'s share from torch.profiler (`spatial_times`).
@@ -1086,7 +1141,9 @@ def phase_kernels(torch, only=None):
 
     import torch.nn.functional as F
 
-    for shape in (ATTN_SHAPES if chosen("flash_attention") else ()):
+    # the served shapes, then the unet_train phase's own
+    train_only = {s: 0 for rows in UNET_TRAIN_CHECK_ROWS for s in unet_train_attn_shapes(rows)}
+    for shape in ({**ATTN_SHAPES, **train_only} if chosen("flash_attention") else ()):
         q, k, v = (randn(*shape) for _ in range(3))
         ops.reset_launch_counts()
         kern = flash_attention(q, k, v)
@@ -1115,7 +1172,7 @@ def phase_kernels(torch, only=None):
         library_ms = _time_one(torch, lambda: F.scaled_dot_product_attention(qt, kt_, vt))
         bound_ms, bound_by = _attn_bound(shape)
         results["flash_attention"].append(dict(
-            shape=list(shape), calls_per_request=ATTN_SHAPES[shape],
+            shape=list(shape), calls_per_request=ATTN_SHAPES.get(shape, 0),
             calls_per_train_step=TRAIN_ATTN_SHAPES.get(shape, 0), err_vs_fp32=k_err,
             twin_err_vs_fp32=t_err, max_abs_err=kt, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -1262,8 +1319,9 @@ def main(argv=None):
     # kernel -> launches of one plain request, one refined request, one train
     # step: each counted with the counters reset just before that path ran
     train_run = f"train run of {TRAIN_STEPS} steps"
+    unet_train_run = f"UNet train run of {UNET_TRAIN_STEPS} steps"
     by_path = {"plain request": {}, "refined request": {}, "I2V plain request": {},
-               "I2V refined request": {}, train_run: {}}
+               "I2V refined request": {}, train_run: {}, unet_train_run: {}}
     if "unet" in phases:
         phase_unet(torch)
     if "refine" in phases:
@@ -1276,6 +1334,10 @@ def main(argv=None):
         by_path["I2V plain request"], by_path["I2V refined request"] = phase_i2v(torch)
     if "train" in phases:
         by_path[train_run] = phase_train(torch)
+    if "unet_train" in phases:
+        by_path[unet_train_run] = phase_unet_train(torch)
+    if "unet_train_memory" in phases:
+        phase_unet_train_memory(torch)
 
     # One entry per kernel. ms, plain_ms, bound_ms and library_ms are totals
     # over one run of the path named in "path": each shape's time per call
@@ -2410,6 +2472,410 @@ def phase_train(torch):
         fail("train", "the CLI's loss is not finite")
     torch.cuda.empty_cache()
     return counts
+
+
+def _write_laion_shard(path, n, seed=0):
+    """A LAION-style tar shard of ``n`` (jpg, txt, json) samples of seeded
+    noise images that pass the reader's filters."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with tarfile.open(path, "w") as tf:
+        for i in range(n):
+            buf = io.BytesIO()
+            Image.fromarray(rs.integers(0, 256, (288, 320, 3), dtype=np.uint8)).save(
+                buf, format="JPEG")
+            for ext, data in (("jpg", buf.getvalue()), ("txt", f"a photo {i}".encode()),
+                              ("json", json.dumps({"aesthetic": 6.0}).encode())):
+                info = tarfile.TarInfo(f"{i:09d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def phase_unet_train(torch):
+    """configs/t2v_train.yaml as shipped (the plain UNet finetune) at full
+    width on the card: T2VTrainer takes UNET_TRAIN_STEPS steps at batch
+    UNET_TRAIN_BATCH (launch counters reset just before, read just after),
+    then a step by parts, the busy share, the gradient check, a save /
+    restore round trip, the CLI at the shipped batch and the joint LAION run.
+    Returns the launch counts of the UNET_TRAIN_STEPS-step run."""
+    import gc
+    import shutil
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.data.datasets import SyntheticMVDataset, batch_iterator
+    from videomv_tpu_torch.ops.flash_attention import attention_reference
+    from videomv_tpu_torch.parallel import build_train_step, draw_train_randoms, make_t2v_apply
+    from videomv_tpu_torch.parallel.train_step import _dropout_stream
+    from videomv_tpu_torch.training.__main__ import main as train_cli
+    from videomv_tpu_torch.training.engine import T2VTrainer
+
+    global _PIPE, _HOST_UNET
+    _PIPE = _HOST_UNET = None  # the trainer builds its own models
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.chdir(ROOT)
+    t0 = time.time()
+    cfg = load_config("configs/t2v_train.yaml", opts=UNET_TRAIN_OPTS)
+    trainer = T2VTrainer(cfg, device="cuda").init(zero_init=False)
+    unet, dev = trainer.unet, trainer.device
+    n_unet = sum(p.numel() for p in unet.parameters())
+    opt = trainer.state.optimizer
+    say("unet_train", f"T2VTrainer of configs/t2v_train.yaml (use_lgm_refine "
+        f"{trainer.use_lgm_refine}): UNet dim {unet.dim} x {tuple(unet.dim_mult)}, "
+        f"{n_unet / 1e9:.3f} B parameters all trained (fp32, autocast "
+        f"{trainer.dtype}), use_checkpoint {unet.use_checkpoint} ({unet.remat_policy}), "
+        f"{trainer.max_frames} views at {trainer.resolution}, {type(opt).__name__} with "
+        f"grad_scale {opt.grad_scale} on {len(opt.scaled)} SD-origin tensors, EMA "
+        f"{trainer.state.ema is not None}; init {time.time() - t0:.1f}s")
+    if (trainer.use_lgm_refine or not unet.use_checkpoint or unet.dim != 320
+            or trainer.max_frames != UNET_TRAIN_VIEWS or not n_unet > 1.4e9):
+        fail("unet_train", "configs/t2v_train.yaml no longer ships the full-width UNet finetune")
+
+    def checksum(module):
+        """Exact integer sums of every parameter's bits: equal before and
+        after means bit-identical (up to a collision of sums)."""
+        return [p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
+                .long().sum().item() for p in module.parameters()]
+
+    frozen = {n: checksum(getattr(trainer, n)) for n in ("vae", "clip")}
+    before = checksum(unet)
+
+    # ---- the main path: UNET_TRAIN_STEPS steps through T2VTrainer.train
+    losses = []
+    step_fn = trainer.train_step
+
+    def logged_step(*a, **k):
+        loss = step_fn(*a, **k)
+        losses.append(loss)
+        return loss
+    trainer.train_step = logged_step
+    n_threads = threading.active_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    last = trainer.train(num_steps=UNET_TRAIN_STEPS, batch_size=UNET_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+    main_counts = counts
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer.train_step = step_fn
+    vals = [float(x) for x in losses]
+    rows = UNET_TRAIN_BATCH * UNET_TRAIN_VIEWS
+    say("unet_train", f"{UNET_TRAIN_STEPS} steps at batch {UNET_TRAIN_BATCH} ({rows} rows) in "
+        f"{run_s:.3f} s (the first includes warm-up), peak {peak:.2f} GiB, loss per step "
+        f"{vals}, launches {counts}, attention launches by shape {shapes['flash_attention']}")
+    want = {k: v * UNET_TRAIN_STEPS for k, v in UNET_TRAIN_LAUNCHES.items()}
+    if counts != want:
+        fail("unet_train", f"expected launches {want}, got {counts}")
+    want = {"flash_attention": {k: v * UNET_TRAIN_STEPS
+                                for k, v in unet_train_attn_shapes(rows).items()},
+            "geglu_ffn": {}, "fused_spatial": {}}
+    if shapes != want:
+        fail("unet_train", f"expected launches by shape {want}, got {shapes}")
+    if len(vals) != UNET_TRAIN_STEPS or not all(v == v and abs(v) < 1e30 for v in vals):
+        fail("unet_train", f"non-finite loss in {vals}")
+    if last != vals[-1] or trainer.state.step != UNET_TRAIN_STEPS:
+        fail("unet_train", "train() did not return the last loss after UNET_TRAIN_STEPS steps")
+    if threading.active_count() != n_threads:
+        fail("unet_train", "the prefetch worker outlived train()")
+    after = checksum(unet)
+    still = sum(a == b for a, b in zip(before, after))
+    if still:
+        fail("unet_train", f"{still} of {len(after)} UNet parameters did not move")
+    for name, sums in frozen.items():
+        if sums != checksum(getattr(trainer, name)):
+            fail("unet_train", f"the frozen {name} changed")
+    say("unet_train", f"all {len(after)} UNet parameter tensors moved; VAE and text tower "
+        f"bit-identical; optimizer count {opt.count}")
+    del before, after, frozen
+
+    # ---- a step by parts (CUDA events), median of 3, and the host wall
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames),
+                               UNET_TRAIN_BATCH))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ema = [p.detach().clone() for p in unet.parameters()]  # the EMA lerp, timed alone
+    p_zero = float(cfg.get("p_zero", 0.1))
+    runs, walls = [], []
+    for _ in range(3):
+        timers = _EventTimers(torch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with timers(f"encode (VAE {rows} frames + text)"):
+            feats = trainer.encode_batch(host)
+        draws = draw_train_randoms(gen, feats["latents"], trainer.diffusion, p_zero)
+        opt.zero_grad()
+        with _dropout_stream(gen):
+            with timers("forward (q_sample, UNet, loss)"):
+                loss = trainer.train_step.loss_fn(feats, draws)
+            with timers("backward (recompute + grads)"):
+                loss.backward()
+        with timers("optimizer (AdamW, key scale)"):
+            opt.step()
+        with timers("EMA lerp"), torch.no_grad():
+            torch._foreach_mul_(ema, 0.9999)
+            torch._foreach_add_(ema, [p.detach() for p in unet.parameters()], alpha=1e-4)
+        ms = timers.ms()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        runs.append(ms)
+    trainer.state.step += 3
+    del ema, loss
+    parts = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+    say("unet_train", "CUDA events, one step by part (median of 3): " + "; ".join(
+        f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f} ms; host wall of the step, median "
+        f"{sorted(walls)[1]:.2f} ms (walls {[round(w, 2) for w in walls]})")
+
+    # ---- the device busy share of whole steps under torch.profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(trainer.state, trainer.encode_batch(host), generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    if busy == 0:
+        say("unet_train", "torch.profiler recorded no device time: busy share not measured")
+    else:
+        classes = {}
+        for name, ms in kernels.items():
+            low = name.lower()
+            cls = next((c for c, keys in _KERNEL_CLASSES if any(k in low for k in keys)),
+                       "other")
+            classes[cls] = classes.get(cls, 0.0) + ms
+        say("unet_train", f"torch.profiler, 2 train steps (encode included): wall "
+            f"{wall_ms / 2:.2f} ms, kernels {busy / 2:.2f} ms per step, device busy "
+            f"{100 * busy / wall_ms:.1f}%")
+        for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+            print(f"  {cls:24s} {ms / 2:9.3f} ms/step {100 * ms / busy:5.1f}%", flush=True)
+        for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {ms / 2:9.3f} ms/step  {name[:110]}", flush=True)
+    del prof, kernels
+
+    # ---- what the attention twin's backward costs, alone, at the step's shapes
+    pieces = {}
+    for shape in unet_train_attn_shapes(rows):
+        g2 = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn(shape, generator=g2, device=dev).bfloat16().requires_grad_()
+                   for _ in range(3))
+        go = torch.randn(shape, generator=g2, device=dev).bfloat16()
+        with torch.no_grad():
+            pieces[f"kernel 1 forward {shape}"] = _time_one(
+                torch, lambda: ops.flash_attention.flash_attention(q, k, v), 5)
+        pieces[f"twin forward + backward {shape}"] = _time_one(
+            torch, lambda: torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go), 3)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
+        pieces[f"twin backward peak GiB {shape}"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        del q, k, v, go
+    say("unet_train", "attention alone at the step's shapes (10 calls of each a step, each "
+        "forward twice, one twin backward): " + "; ".join(
+            f"{k} {v:.3f}" + ("" if "GiB" in k else " ms") for k, v in pieces.items()))
+
+    # ---- one step's UNet gradient: bf16 autocast + kernel 1 vs fp32 + plain
+    # paths, same batch and draws, every dropout at p = 0 in training mode
+    feats = trainer.encode_batch(host)
+    draws = draw_train_randoms(gen, feats["latents"], trainer.diffusion, p_zero)
+    dropouts = [(m, m.p) for m in unet.modules() if isinstance(m, torch.nn.Dropout)]
+    for m, _ in dropouts:
+        m.p = 0.0
+
+    def unet_grad(loss_fn):
+        opt.zero_grad()
+        loss = loss_fn(feats, draws)
+        loss.backward()
+        flat = torch.cat([p.grad.flatten() for p in unet.parameters()])
+        opt.zero_grad()
+        return loss.item(), flat
+
+    ops.reset_launch_counts()
+    loss16, g16 = unet_grad(trainer.train_step.loss_fn)
+    k16 = ops.launch_counts()["flash_attention"]
+    plain = build_train_step(make_t2v_apply(unet), trainer.diffusion, use_ema=False,
+                             p_zero=p_zero, zero_y=trainer.zero_y, autocast_dtype=None)
+    ops.reset_launch_counts()
+    loss32, g32 = unet_grad(plain.loss_fn)
+    if any(ops.launch_counts().values()) or k16 != UNET_TRAIN_LAUNCHES["flash_attention"]:
+        fail("unet_train", f"launches: bf16 step {k16}, fp32 step {ops.launch_counts()}")
+    for m, p in dropouts:
+        m.p = p
+    cos = (torch.dot(g16, g32) / (g16.norm() * g32.norm())).item()
+    ratio = (g16.norm() / g32.norm()).item()
+    rel_l2 = ((g16 - g32).norm() / g32.norm()).item()
+    say("unet_train", f"UNet gradient of one step ({g16.numel() / 1e9:.3f} B values), same "
+        f"batch and draws, dropout 0 in training mode, bf16 autocast + kernel 1 vs fp32 + plain "
+        f"paths: loss {loss16:.6f} vs {loss32:.6f}, cosine {cos:.4f} (bound >= "
+        f"{TRAIN_GRAD_MIN_COS}), |g16|/|g32| {ratio:.4f} (bound {TRAIN_GRAD_NORM_RATIO}), "
+        f"|d|/|ref| {rel_l2:.3e}")
+    if (not cos >= TRAIN_GRAD_MIN_COS
+            or not TRAIN_GRAD_NORM_RATIO[0] <= ratio <= TRAIN_GRAD_NORM_RATIO[1]):
+        fail("unet_train", "the bf16 gradient disagrees with the fp32 one")
+    del g16, g32, feats, plain
+
+    # ---- the visualisation hook once on the live UNet (eval mode, bf16
+    # autocast over the fp32 masters), 2 DDIM steps of one validation prompt
+    trainer.cfg.ddim_timesteps = 2
+    viz_dir = os.path.join(ROOT, "workspace", "chip_smoke_unet_train")
+    hook = trainer.make_viz_hook(viz_dir)
+    hook.prompts = hook.prompts[:1]
+    t1 = time.perf_counter()
+    written = hook(trainer.state.step, unet) if hook is not None else None
+    say("unet_train", f"viz hook, 1 prompt x 2 DDIM steps with CFG: wrote {written} in "
+        f"{time.perf_counter() - t1:.1f} s; UNet back in training mode {unet.training}")
+    if not written or not os.path.exists(written) or not unet.training:
+        fail("unet_train", "the visualisation hook wrote nothing")
+    del hook
+
+    # ---- save / restore of the full-width state: parameters, moments, step
+    ckpt_dir = os.path.join(ROOT, "workspace", "chip_smoke_unet_train", "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    need = sum(t.numel() * t.element_size()
+               for t in list(unet.parameters()) + opt.mu + opt.nu)
+    free = shutil.disk_usage(ckpt_dir).free
+    say("unet_train", f"checkpoint of {need / 2**30:.2f} GiB, {free / 2**30:.1f} GiB free")
+    if free < 1.1 * need:
+        fail("unet_train", "the disk cannot hold the full-width checkpoint")
+    ref = [t.detach().clone() for t in list(unet.parameters()) + opt.mu + opt.nu]
+    step_before, count_before = trainer.state.step, opt.count
+    t1 = time.perf_counter()
+    path = trainer.save(ckpt_dir)
+    save_s = time.perf_counter() - t1
+    with torch.no_grad():
+        for t in list(unet.parameters()) + opt.mu + opt.nu:
+            t.zero_()
+    trainer.state.step, opt.count = 0, 0
+    t1 = time.perf_counter()
+    trainer.restore(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    same = all(torch.equal(a, b) for a, b in zip(ref, list(unet.parameters()) + opt.mu + opt.nu))
+    say("unet_train", f"save / restore: {os.path.getsize(path) / 2**30:.2f} GiB, save "
+        f"{save_s:.1f} s, restore {load_s:.1f} s, step {trainer.state.step}, count {opt.count}, "
+        f"parameters and both moments identical {same}")
+    if not same or (trainer.state.step, opt.count) != (step_before, count_before):
+        fail("unet_train", "the checkpoint did not restore the train state")
+    os.remove(path)
+    del trainer, ref, unet, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the CLI once, on the card by default, at the shipped batch
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    loss = train_cli(["--cfg", "configs/t2v_train.yaml", "--steps", "2", "--batch-size",
+                      str(UNET_TRAIN_CLI_BATCH), *UNET_TRAIN_OPTS])
+    say("unet_train", f"CLI main() --steps 2 --batch-size {UNET_TRAIN_CLI_BATCH} (the shipped "
+        f"batch_sizes['24']): final loss {loss:.6f} in {time.time() - t1:.1f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not loss == loss:
+        fail("unet_train", "the CLI's loss is not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- configs/t2v_train_laion.yaml: image steps at f = 1 every 2nd step
+    shard = os.path.join(ROOT, "workspace", "chip_smoke_laion", "00000.tar")
+    _write_laion_shard(shard, 2 * UNET_TRAIN_IMAGE_BATCH)
+    laion = load_config("configs/t2v_train_laion.yaml", opts=[
+        *UNET_TRAIN_OPTS, "image_every", str(UNET_TRAIN_IMAGE_EVERY),
+        "img_dataset.shards", json.dumps([shard])])
+    shipped = laion.batch_sizes
+    if int(shipped["1"]) != UNET_TRAIN_IMAGE_BATCH:
+        fail("unet_train", f"configs/t2v_train_laion.yaml ships image batch {shipped['1']}")
+    t1 = time.time()
+    trainer = T2VTrainer(laion, device="cuda").init(zero_init=False)
+    seen = []
+    step_fn = trainer.train_step
+
+    def shape_step(state, feats, **kw):
+        seen.append(tuple(feats["latents"].shape))
+        return step_fn(state, feats, **kw)
+    trainer.train_step = shape_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss = trainer.train(num_steps=UNET_TRAIN_LAION_STEPS, batch_size=UNET_TRAIN_LAION_BATCH)
+    torch.cuda.synchronize()
+    counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+    n_img = sum(1 for s in seen if s[2] == 1)
+    say("unet_train", f"configs/t2v_train_laion.yaml (EMA {trainer.state.ema is not None}), "
+        f"{UNET_TRAIN_LAION_STEPS} steps, image_every {UNET_TRAIN_IMAGE_EVERY} (shipped "
+        f"{load_config('configs/t2v_train_laion.yaml').image_every}), video batch "
+        f"{UNET_TRAIN_LAION_BATCH} and image batch {UNET_TRAIN_IMAGE_BATCH} (shipped "
+        f"{dict(shipped)}): latents per step {seen}, final loss {loss:.6f}, launches "
+        f"{counts}, attention by shape {shapes['flash_attention']}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {time.time() - t1:.1f}s with init")
+    n_vid = UNET_TRAIN_LAION_STEPS - n_img
+    want = dict(unet_train_attn_shapes(UNET_TRAIN_IMAGE_BATCH))
+    want = {k: v * n_img for k, v in want.items()}
+    for k, v in unet_train_attn_shapes(UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS).items():
+        want[k] = want.get(k, 0) + v * n_vid
+    if (n_img != UNET_TRAIN_LAION_STEPS // UNET_TRAIN_IMAGE_EVERY
+            or shapes["flash_attention"] != want or not loss == loss):
+        fail("unet_train", f"joint LAION run: expected attention launches {want} with "
+             f"{UNET_TRAIN_LAION_STEPS // UNET_TRAIN_IMAGE_EVERY} image steps")
+    del trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_counts
+
+
+def phase_unet_train_memory(torch):
+    """One step of configs/t2v_train_laion.yaml as shipped (EMA on) at each
+    (frames, batch) of UNET_TRAIN_MEMORY_BATCHES: its peak memory and wall,
+    or the first line of the out-of-memory error. A measurement of what the
+    card holds, not a path: the error is printed, not raised."""
+    import gc
+
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.data.datasets import batch_iterator
+    from videomv_tpu_torch.training.engine import T2VTrainer
+
+    os.chdir(ROOT)
+    shard = os.path.join(ROOT, "workspace", "chip_smoke_laion", "00000.tar")
+    _write_laion_shard(shard, max(b for f, b in UNET_TRAIN_MEMORY_BATCHES if f == 1))
+    cfg = load_config("configs/t2v_train_laion.yaml",
+                      opts=[*UNET_TRAIN_OPTS, "img_dataset.shards", json.dumps([shard])])
+    trainer = T2VTrainer(cfg, device="cuda").init(zero_init=False)
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    for frames, batch in UNET_TRAIN_MEMORY_BATCHES:
+        ds = trainer.make_image_dataset() if frames == 1 else trainer.make_dataset()
+        host = next(batch_iterator(ds, batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        try:
+            loss = float(trainer.train_step(trainer.state, trainer.encode_batch(host),
+                                            generator=gen))
+            torch.cuda.synchronize()
+            out = (f"loss {loss:.6f}, {(time.perf_counter() - t1) * 1e3:.1f} ms with its "
+                   f"encode (first at this shape), peak "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        except torch.cuda.OutOfMemoryError as e:
+            out = f"out of memory: {str(e).splitlines()[0]}"
+        trainer.state.optimizer.zero_grad()
+        del host
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("unet_train_memory", f"configs/t2v_train_laion.yaml, one step at f = {frames}, "
+            f"batch {batch} ({frames * batch} UNet rows): {out}")
 
 if __name__ == "__main__":
     main()

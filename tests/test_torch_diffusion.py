@@ -102,8 +102,11 @@ def test_ddim_cfg_loop_matches_jax_at_the_i2v_schedule(steps, first_t):
 
 
 def test_unported_mean_type_raises():
-    with pytest.raises(NotImplementedError):
-        TDiffusion(**dict(LINEAR_SD, mean_type="x_{t-1}"))
+    """Every mean type of the JAX package is ported (``x_{t-1}`` too); an
+    unknown one raises."""
+    assert TDiffusion(**dict(LINEAR_SD, mean_type="x_{t-1}")).mean_type == "x_{t-1}"
+    with pytest.raises(ValueError, match="mean_type"):
+        TDiffusion(**dict(LINEAR_SD, mean_type="score"))
 
 
 def test_q_sample_and_offset_noise_match_jax():

@@ -1,17 +1,27 @@
-"""The port's training engine on the CPU: ``T2VTrainer`` takes steps from
-``configs/lgm_refine_train_tiny.yaml`` (a small text tower and VAE stand in
-for ViT-H and the SD VAE, to keep the test fast), only the LGM changes, the
-state saves and restores, no thread outlives the loop; the training and
-inference CLIs run with ``--device cpu`` and refuse to run without a card
-otherwise; the host data pipeline equals the JAX package's."""
+"""The port's training engine on the CPU (a small text tower and VAE stand
+in for ViT-H and the SD VAE, to keep the tests fast). The LGM-refine
+finetune of ``configs/lgm_refine_train_tiny.yaml``: ``T2VTrainer`` takes
+steps, only the LGM changes, the state saves and restores, no thread outlives
+the loop. The plain and joint-LAION UNet finetune of
+``configs/t2v_train_tiny.yaml``: only the UNet changes, the EMA follows, the
+whole state (parameters, moments, EMA, step) saves and restores, the image
+steps come every ``image_every``-th step at f = 1 from a LAION shard the test
+writes, the visualisation hook writes its files and never raises into the
+loop. The training and inference CLIs run with ``--device cpu`` and refuse
+to run without a card otherwise; the host data pipeline equals the JAX
+package's."""
 
 import functools
+import io
+import json
 import os
+import tarfile
 import threading
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import videomv_tpu.data.datasets as jdata
 import videomv_tpu_torch.training.engine as engine
@@ -19,12 +29,15 @@ from torch_port_helpers import set_torch_threads
 from videomv_tpu_torch.config import load_config
 from videomv_tpu_torch.data import datasets as tdata
 from videomv_tpu_torch.models import AutoencoderKL, CLIPTextTower
+from videomv_tpu_torch.training.hooks import VisualTrainHook
 
 set_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = os.path.join(REPO, "configs", "lgm_refine_train_tiny.yaml")
 SMALL = ["UNet.context_dim", "64", "save_ckp_interval", "0"]
+UNET_CFG = os.path.join(REPO, "configs", "t2v_train_tiny.yaml")
+UNET_SMALL = [*SMALL, "training_dtype", "float32"]
 
 
 @pytest.fixture()
@@ -110,9 +123,17 @@ def test_gs_features_wire(small_towers, tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    cfg = load_config(TINY_CFG, opts=["UNet.use_lgm_refine", "False"])
-    with pytest.raises(NotImplementedError, match="D2"):
-        engine.T2VTrainer(cfg, device="cpu")
+    """I2V training and ``param_sharding: fsdp`` are not ported and raise
+    (the plain UNet finetune, ``use_lgm_refine False``, is: see the tests
+    below)."""
+    for opts, match in ((["TASK_TYPE", "train_i2v_entrance"], "I2V training"),
+                        (["UNet.type", "UNetSD_I2VGen"], "I2V training"),
+                        (["param_sharding", "fsdp"], "slice E")):
+        cfg = load_config(TINY_CFG, opts=opts)
+        with pytest.raises(NotImplementedError, match=match):
+            engine.T2VTrainer(cfg, device="cpu")
+    cfg = load_config(TINY_CFG, opts=["UNet.use_lgm_refine", "False", "prng_impl", "rbg"])
+    assert not engine.T2VTrainer(cfg, device="cpu").use_lgm_refine
 
 
 def test_training_cli_on_cpu(small_towers, tmp_path):
@@ -191,3 +212,116 @@ def test_prefetch_worker_stops_drains_and_joins():
         next(it)
     assert threading.active_count() == n
     assert list(tdata.prefetch_host(iter([{"i": 1}, {"i": 2}]))) == [{"i": 1}, {"i": 2}]
+
+
+def _unet_trainer(tmp_path, *opts):
+    cfg = load_config(UNET_CFG, opts=[*UNET_SMALL, "log_dir", str(tmp_path), *opts])
+    return engine.T2VTrainer(cfg, device="cpu").init(zero_init=False)
+
+
+def test_plain_finetune_moves_only_the_unet_and_round_trips(small_towers, tmp_path):
+    tr = _unet_trainer(tmp_path, "Pretrain", "{grad_scale: 0.5, sd_keys_path: "
+                       "data/stable_diffusion_image_key_temporal_attention_x1.json}")
+    assert not tr.use_lgm_refine and tr.state.step == 0 and tr.unet.use_checkpoint
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in tr.unet.parameters())
+    assert tr.state.ema is not None and len(tr.state.optimizer.scaled) > 20
+    assert tr.zero_y.shape == (1, 77, 64)
+    frozen = {n: _snapshot(getattr(tr, n)) for n in ("vae", "clip")}
+    before = _snapshot(tr.unet)
+    n_threads = threading.active_count()
+    loss = tr.train(num_steps=3, batch_size=2)
+    assert np.isfinite(loss) and loss > 0
+    assert threading.active_count() == n_threads  # the prefetch worker was joined
+    assert tr.state.step == 3 and tr.state.optimizer.count == 3
+    moved = max(float((a - b.detach()).abs().max()) for a, b in zip(before, tr.unet.parameters()))
+    assert moved > 0, "the UNet parameters must update"
+    for name, snap in frozen.items():
+        assert all(torch.equal(a, b) for a, b in zip(snap, getattr(tr, name).parameters())), name
+    # EMA (decay 0.9999) lags the parameters
+    ema_moved = max(float((a - e).abs().max()) for a, e in zip(before, tr.state.ema))
+    assert 0 < ema_moved < moved
+
+    path = tr.save(str(tmp_path / "checkpoints"))
+    assert os.path.basename(path) == "step_00000003.pth"
+    want = _snapshot(tr.unet)
+    mu = [t.clone() for t in tr.state.optimizer.mu]
+    nu = [t.clone() for t in tr.state.optimizer.nu]
+    ema = [t.clone() for t in tr.state.ema]
+    tr.train(num_steps=1, batch_size=2)
+    assert tr.state.step == 4
+    tr.restore(path)
+    assert tr.state.step == 3 and tr.state.optimizer.count == 3
+    for got, exp in ((list(tr.unet.parameters()), want), (tr.state.optimizer.mu, mu),
+                     (tr.state.optimizer.nu, nu), (tr.state.ema, ema)):
+        assert all(torch.equal(a, b) for a, b in zip(exp, got))
+
+
+def _write_shard(path, n=3):
+    rs = np.random.default_rng(2)
+    with tarfile.open(path, "w") as tf:
+        for i in range(n):
+            buf = io.BytesIO()
+            Image.fromarray(rs.integers(0, 256, (160, 200, 3), dtype=np.uint8)).save(
+                buf, format="JPEG")
+            for ext, data in (("jpg", buf.getvalue()), ("txt", f"image {i}".encode()),
+                              ("json", json.dumps({"aesthetic": 6.0}).encode())):
+                info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def test_laion_image_steps_alternate_at_one_frame(small_towers, tmp_path):
+    shard = tmp_path / "00000.tar"
+    _write_shard(shard)
+    tr = _unet_trainer(tmp_path, "image_every", "2", "batch_sizes", "{'4': 2, '1': 3}",
+                       "img_dataset", json.dumps({"type": "LAIONImageDataset",
+                                                  "shards": [str(shard)], "resolution": [64, 64]}))
+    assert len(list(tr.make_image_dataset())) == 3
+    seen = []
+    step = tr.train_step
+
+    def logged(state, feats, **kw):
+        seen.append((tuple(feats["latents"].shape), "camera_data" in feats))
+        return step(state, feats, **kw)
+
+    tr.train_step = logged
+    loss = tr.train(num_steps=5)
+    assert np.isfinite(loss)
+    assert seen == [((2, 4, 4, 8, 8), True), ((3, 4, 1, 8, 8), False)] * 2 + [
+        ((2, 4, 4, 8, 8), True)]
+    # no shards: image_every is ignored with a warning
+    tr2 = _unet_trainer(tmp_path, "image_every", "2", "img_dataset", json.dumps(
+        {"type": "LAIONImageDataset", "shards": ["/nonexistent/{0..3}.tar"]}))
+    assert tr2.make_image_dataset() is None
+
+
+def test_viz_hook_writes_and_never_raises(small_towers, tmp_path):
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("a chair\n")
+    tr = _unet_trainer(tmp_path, "viz_interval", "1", "validation_prompts", str(prompts),
+                       "ddim_timesteps", "2", "max_frames", "4", "use_ema", "True")
+    tr.train(num_steps=1, batch_size=2)
+    viz = tmp_path / "viz"
+    names = sorted(os.listdir(viz))
+    assert any(n.startswith("viz_step_00000001") for n in names), names
+    assert any(n.startswith("latents_00000001_a_chair") for n in names), names
+    assert tr.unet.training  # back in training mode after sampling
+    # the EMA weights were swapped in and back
+    assert all(not torch.equal(p, e) for p, e in zip(tr.unet.parameters(), tr.state.ema)
+               if p.requires_grad and p.numel() > 1)
+
+    def broken_factory():
+        raise RuntimeError("no pipeline")
+
+    hook = VisualTrainHook(broken_factory, ["x"], str(tmp_path / "viz2"))
+    assert hook(5, tr.unet) is None and tr.unet.training
+    tr.cfg.validation_prompts = str(tmp_path / "missing.txt")
+    assert tr.make_viz_hook(str(tmp_path)) is None
+
+
+def test_plain_training_cli_on_cpu(small_towers, tmp_path):
+    from videomv_tpu_torch.training.__main__ import main
+
+    loss = main(["--cfg", UNET_CFG, "--steps", "2", "--device", "cpu", *UNET_SMALL, "log_dir",
+                 str(tmp_path)])
+    assert np.isfinite(loss) and loss > 0

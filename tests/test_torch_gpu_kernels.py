@@ -11,7 +11,8 @@ fused spatial-transformer block (other widths and contexts than the served
 ones, its input checks, its backward, its dispatch under the environment
 switch; the wgmma kernel at the served width against its twin at ragged
 contexts and at 1, 24 and 48 rows, with large logits, and the choice of
-kernel by shape). Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
+kernel by shape), and the attention kernel inside a checkpointed block at
+the UNet finetune's shape. Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
 
     python -m pytest tests/test_torch_gpu_kernels.py -m gpu --noconftest -q
@@ -561,6 +562,36 @@ def test_flash_attention_backward_is_the_twins(cuda, shape):
     with torch.no_grad():
         flash_attention(q, k, v)  # no graph, same kernel
     assert ops.launch_counts()["flash_attention"] == 2
+
+
+def test_flash_attention_under_checkpoint(cuda):
+    """Kernel 1 inside a block recomputed by ``torch.utils.checkpoint``, as the
+    UNet finetune runs it at its 32² shape: the forward launches once, the
+    backward's recomputation once more (the counter sees both), and the
+    gradient, which goes through the plain twin, stays within the kernel
+    bound of an fp32 computation."""
+    from torch.utils.checkpoint import checkpoint
+
+    shape = (48, 1024, 5, 64)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn(gen, cuda, *shape).requires_grad_() for _ in range(3))
+    go = _randn(gen, cuda, *shape)
+    ops.reset_launch_counts()
+    out = checkpoint(flash_attention, q, k, v, use_reentrant=False)
+    assert ops.launch_counts_by_shape()["flash_attention"] == {shape: 1}
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert ops.launch_counts_by_shape()["flash_attention"] == {shape: 2}
+    twin = torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
+    f32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention_reference(*f32), f32, go.float())
+    assert _rel_max(got, twin) <= 1e-3
+    for g, t, r in zip(got, twin, ref):
+        ok, errs = _within_bound(g, t, r)
+        assert ok, errs
+    with torch.no_grad():
+        ok, errs = _within_bound(out, attention_reference(q, k, v),
+                                 attention_reference(*(t.float() for t in (q, k, v))))
+    assert ok, errs
 
 
 def test_geglu_ffn_backward_is_the_twins(cuda):

@@ -23,7 +23,10 @@ IMPORTS = (
     "videomv_tpu_torch.models.lpips", "videomv_tpu_torch.data.datasets",
     "videomv_tpu_torch.ops.gs_cameras", "videomv_tpu_torch.utils.device",
     "videomv_tpu_torch.inference.i2v", "videomv_tpu_torch.models.unet_i2v",
-    "videomv_tpu_torch.ops.fused_spatial",
+    "videomv_tpu_torch.ops.fused_spatial", "videomv_tpu_torch.parallel",
+    "videomv_tpu_torch.parallel.train_step", "videomv_tpu_torch.training.hooks",
+    "videomv_tpu_torch.data.laion", "videomv_tpu_torch.data.native_loader",
+    "videomv_tpu_torch.utils.video_io",
 )
 
 

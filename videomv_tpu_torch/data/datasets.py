@@ -1,24 +1,157 @@
-"""Host-side data for training: the procedural multiview dataset, batching
-and the background prefetcher (numpy only).
+"""Host-side data for training (numpy and Pillow only): the G-Objaverse
+multiview render dataset, the procedural multiview dataset, batching and
+the background prefetcher.
 
-A copy of what the LGM-refine finetune needs from
-``videomv_tpu/data/datasets.py``; tests pin the two together. The
-G-Objaverse and LAION datasets and the native loader come with the UNet
-finetune.
+A copy of what the T2V finetunes need from ``videomv_tpu/data/datasets.py``;
+tests pin the two together. ``GObjaverseVideoDataset`` (reference
+tools/datasets/video_dataset.py): 24 fixed orbit renders per object, RGBA
+composited onto grey 128, full-size frames and masks for the Gaussian
+supervision, per-view 4×4 camera-to-world matrices from JSON (flattened to
+16, y and z negated), Plücker rays and colmap cameras from ``prepare_gs``,
+captions from a cap3d JSON with ", 3d asset" appended, a failed item skipped.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import queue
+import random
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .cameras import get_camera
+from .cameras import GSCameraSettings, get_camera, prepare_gs_training
+from .native_loader import load_views
 
-__all__ = ["SyntheticMVDataset", "batch_iterator", "cycle_epochs", "prefetch_host"]
+__all__ = ["GObjaverseVideoDataset", "SyntheticMVDataset", "batch_iterator", "cycle_epochs",
+           "prefetch_host", "read_camera_matrix_single"]
+
+logger = logging.getLogger(__name__)
+
+
+def _load_rgba_on_bg(path: str, bg: int, size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """PNG → (rgb float [0, 1] [H, W, 3] composited on ``bg``, mask [H, W, 1])."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGBA")
+    if img.size != (size, size):
+        img = img.resize((size, size), Image.BILINEAR)
+    arr = np.asarray(img).astype(np.float32) / 255.0
+    rgb, a = arr[..., :3], arr[..., 3:4]
+    return rgb * a + bg / 255.0 * (1.0 - a), a
+
+
+def read_camera_matrix_single(json_file: str) -> np.ndarray:
+    """Per-view camera JSON → 4×4 camera-to-world with the y and z columns
+    negated (reference video_dataset.py:16-33)."""
+    with open(json_file, "r", encoding="utf8") as f:
+        j = json.load(f)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 0] = np.asarray(j["x"], np.float32)
+    m[:3, 1] = -np.asarray(j["y"], np.float32)
+    m[:3, 2] = -np.asarray(j["z"], np.float32)
+    m[:3, 3] = np.asarray(j["origin"], np.float32)
+    return m
+
+
+@dataclass
+class GObjaverseVideoDataset:
+    """24-view orbit render dataset (reference VideoDataset). Per object:
+    ``<root>/<uid>/{00000..00023}/{00000..00023}.png + .json``."""
+
+    data_list: Sequence[str]
+    data_dir_list: Sequence[str]
+    caption_dir: Optional[str] = None
+    resolution: Tuple[int, int] = (256, 256)
+    max_frames: int = 24
+    background: int = 128
+    prepare_lgm: bool = True
+    # full-resolution frames and masks for the Gaussian supervision (the
+    # reference supervises LGM renders at 512²); 0 falls back to resolution
+    gs_full_size: int = 512
+    gs_settings: GSCameraSettings = field(default_factory=GSCameraSettings)
+    # False when the trainer derives rays and colmap matrices on the device:
+    # then only the ground-truth frames and masks are packaged
+    prepare_gs_cameras: bool = True
+    replica: int = 1000
+    seed: int = 0
+
+    def __post_init__(self):
+        self.items: List[Tuple[str, str]] = []
+        for lst, root in zip(self.data_list, self.data_dir_list):
+            if not os.path.exists(lst):
+                continue
+            with open(lst) as f:
+                uids = json.load(f) if lst.endswith(".json") else [line.strip() for line in f]
+            for u in uids:
+                self.items.append((root, u if isinstance(u, str) else str(u)))
+        self.captions = {}
+        if self.caption_dir and os.path.exists(self.caption_dir):
+            with open(self.caption_dir) as f:
+                self.captions = json.load(f)
+        self._rng = random.Random(self.seed)
+
+    def __len__(self):
+        return len(self.items) * self.replica
+
+    def _load_item(self, idx: int) -> Dict[str, np.ndarray]:
+        root, uid = self.items[idx % len(self.items)]
+        obj_dir = os.path.join(root, uid)
+        pngs, cams = [], []
+        for v in range(self.max_frames):
+            pngs.append(os.path.join(obj_dir, f"{v:05d}", f"{v:05d}.png"))
+            cams.append(read_camera_matrix_single(
+                os.path.join(obj_dir, f"{v:05d}", f"{v:05d}.json")).flatten())
+        full = self.gs_full_size if (self.prepare_lgm and self.gs_full_size) else 0
+        rgb, a, frgb, fa = load_views(pngs, out_size=self.resolution[0],
+                                      background=self.background, full_size=full)
+        video = rgb.transpose(0, 3, 1, 2)  # [F, 3, H, W]
+        mask = a.transpose(0, 3, 1, 2)
+        camera = np.stack(cams)  # [F, 16]
+        caption = self.captions.get(uid.split("/")[-1], "")
+        if caption and "3d asset" not in caption:
+            caption = caption + ", 3d asset"
+        item = {
+            "video": (video * 2.0 - 1.0).astype(np.float32),
+            "mask": mask.astype(np.float32),
+            "camera_data": camera.astype(np.float32),
+            "caption": caption,
+        }
+        if self.prepare_lgm:
+            sup_img = frgb.transpose(0, 3, 1, 2) if frgb is not None else video
+            sup_mask = fa.transpose(0, 3, 1, 2) if fa is not None else mask
+            item["gs_data"] = self.prepare_gs(camera, sup_img, sup_mask)
+        return item
+
+    def prepare_gs(self, camera: np.ndarray, images01: np.ndarray, masks: np.ndarray):
+        """Pose canonicalisation, rays and colmap matrices (the training
+        chain, reference video_dataset.py:103-144) beside the supervision
+        targets ``images01`` [F, 3, R, R] in [0, 1] and ``masks`` [F, 1, R, R]."""
+        out = {"images_output": images01.astype(np.float32),
+               "masks_output": masks.astype(np.float32)}
+        if not self.prepare_gs_cameras:
+            return out
+        gs = prepare_gs_training(camera[None], self.gs_settings,
+                                 ray_size=self.gs_settings.input_size)
+        out.update(input=gs["input_rays"][0], cam_view=gs["cam_view"][0],
+                   cam_view_proj=gs["cam_view_proj"][0], cam_pos=gs["cam_pos"][0])
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        i = 0
+        n = len(self)
+        while True:
+            try:
+                yield self._load_item(i % max(len(self.items), 1))
+            except Exception as e:  # noqa: BLE001 - skip-on-error (video_dataset.py:94-96)
+                logger.warning("dataset item %d failed (%s); skipping", i, e)
+            i += 1
+            if i >= n:
+                return
 
 
 @dataclass

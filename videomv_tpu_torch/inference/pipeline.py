@@ -78,6 +78,8 @@ def unet_kwargs_from_cfg(unet_cfg: dict) -> dict:
             "transformer" if m.get("use_temporal_transformer", True) else "rotary"),
         use_fps_condition=m.get("use_fps_condition", False),
         use_camera_condition=m.get("use_camera_condition", True),
+        use_checkpoint=m.get("use_checkpoint", False),
+        remat_policy=m.get("remat_policy", "full"),
     )
 
 

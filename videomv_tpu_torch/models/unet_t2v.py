@@ -11,6 +11,15 @@ parameters (cast the module with ``.to(torch.bfloat16)`` for bf16).
 The block plan (``build_unet_plan``) is the JAX package's, so module paths
 equal the released checkpoint keys: ``input_blocks.3.op`` (downsample),
 ``output_blocks.2.1.conv`` (upsample), ``middle_block.0..3``, ``out.0/2``.
+
+``use_checkpoint`` recomputes every ``ResBlock``, ``SpatialTransformer``
+and ``TemporalTransformer`` in the backward pass (the JAX package's
+``nn.remat`` per block) through ``torch.utils.checkpoint`` without
+reentrancy, which restores the RNG state, so the recomputed dropout masks
+are the forward's. ``remat_policy`` is the JAX key: ``full`` (keep only the
+blocks' inputs) is ported; ``dots`` and ``dots_no_batch``, which no shipped
+config sets, raise ``NotImplementedError``. Without autograd recording
+(sampling) the blocks run plainly.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (
     Downsample,
@@ -121,9 +131,18 @@ class UNetSD_T2VBase(nn.Module):
         temporal_block: str = "transformer",
         use_fps_condition: bool = False,
         use_camera_condition: bool = True,
+        use_checkpoint: bool = False,
+        remat_policy: str = "full",
         **unused,
     ):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
+        if remat_policy in ("dots", "dots_no_batch"):
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r}: only 'full' is ported")
+        if remat_policy != "full":
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
+        self.remat_policy = remat_policy
         if temporal_block != "transformer":
             raise NotImplementedError(
                 f"temporal_block {temporal_block!r}: only 'transformer' is ported")
@@ -188,15 +207,22 @@ class UNetSD_T2VBase(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.out[2].weight.dtype
 
+    def _block_call(self, mod: nn.Module, *args):
+        """``mod(*args)``, recomputed in the backward pass when
+        ``use_checkpoint`` is set and autograd is recording."""
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return mod(*args)
+        return checkpoint(mod, *args, use_reentrant=False)
+
     def _run(self, blocks, h, e, context, b, f):
         for mod in (blocks if isinstance(blocks, nn.ModuleList) else (blocks,)):
             if isinstance(mod, ResBlock):
-                h = mod(h, e, f)
+                h = self._block_call(mod, h, e, f)
             elif isinstance(mod, SpatialTransformer):
-                h = mod(h, context)
+                h = self._block_call(mod, h, context)
             elif isinstance(mod, TemporalTransformer):
                 bf, c, hh, ww = h.shape
-                ht = mod(h.reshape(b, f, c, hh, ww).permute(0, 2, 1, 3, 4))
+                ht = self._block_call(mod, h.reshape(b, f, c, hh, ww).permute(0, 2, 1, 3, 4))
                 h = ht.permute(0, 2, 1, 3, 4).reshape(bf, c, hh, ww)
             else:
                 h = mod(h)

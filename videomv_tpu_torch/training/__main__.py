@@ -6,9 +6,12 @@
 Takes the arguments of the JAX package's ``train_net.py`` plus ``--device``.
 It runs on the card: without a CUDA device it stops with an error, and
 ``--device cpu`` is the only way onto the CPU. ``--debug`` limits the run to
-3 steps at batch 1 on the synthetic dataset. Only the LGM-refine finetune is
-ported, so the config must set ``UNet.use_lgm_refine True`` (as a ``k v``
-override of ``configs/t2v_train.yaml``, or ``configs/lgm_refine_train_tiny.yaml``).
+3 steps at batch 1. The T2V finetunes are ported: the plain UNet finetune
+(``configs/t2v_train.yaml`` as shipped; ``configs/t2v_train_tiny.yaml`` at a
+small size), the joint LAION finetune (``configs/t2v_train_laion.yaml``, image
+steps at f = 1 when its shards exist) and the LGM-refine finetune
+(``UNet.use_lgm_refine True``, or ``configs/lgm_refine_train_tiny.yaml``). I2V
+training (``train_i2v_entrance``) is refused: it is not ported yet.
 """
 
 from __future__ import annotations

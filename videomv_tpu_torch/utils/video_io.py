@@ -3,17 +3,19 @@
 ``save_multiview_video`` writes an mp4 through ``imageio`` when it is
 installed, else one PNG per view through Pillow, else the raw uint8 array
 as ``.npy`` — whichever the machine has. It returns the path it wrote.
+``save_video_grid`` puts several such videos side by side under one
+caption line (reference video_op.py:46-105).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["save_multiview_video"]
+__all__ = ["save_multiview_video", "save_video_grid"]
 
 logger = logging.getLogger(__name__)
 
@@ -60,3 +62,13 @@ def save_multiview_video(path: str, frames: np.ndarray, caption: Optional[str] =
         return stem
     np.save(stem + ".npy", frames)
     return stem + ".npy"
+
+
+def save_video_grid(path: str, videos: Sequence[np.ndarray],
+                    captions: Optional[Sequence[str]] = None, fps: int = 8) -> str:
+    """uint8 [F, H, W, 3] videos, cut to the shortest, side by side →
+    ``save_multiview_video`` with the captions joined by `` | ``."""
+    f = min(v.shape[0] for v in videos)
+    grid = np.concatenate([v[:f] for v in videos], axis=2)
+    return save_multiview_video(path, grid, caption=" | ".join(captions) if captions else None,
+                                fps=fps)
