@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (videomv_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, one card, ~12 minutes
+    python3 chip_smoke.py            # every phase, one card, ~8-10 minutes
 
 Phases (each prints its lines; a failed phase exits non-zero):
   1. environment: torch/CUDA versions, device, power limit, optional deps;
@@ -76,7 +76,23 @@ Phases (each prints its lines; a failed phase exits non-zero):
      at the shipped batch of 8; then configs/t2v_train_laion.yaml on a shard
      written into workspace/, 4 steps with an image step (f = 1) every 2nd
      at the shipped image batch of 196 and video batch 16 (the shipped 24
-     does not fit in 80 GB).
+     does not fit in 80 GB);
+ 11. i2v_train: configs/i2vgen_xl_train.yaml as shipped (UNetSD_I2VGen of
+     1.42 B parameters trained in fp32 under bf16 autocast, the joint text +
+     visual tower and the VAE frozen, cosine / zero terminal SNR /
+     v-prediction with offset noise 0.1, EMA on) with seeded weights —
+     T2VTrainer takes 3 steps at batch 2 with asserted launch counts by
+     shape, every UNet and EMA tensor moved and the towers bit-identical; a
+     step by parts, the busy share, one step's UNet gradient bf16 with kernel
+     1 vs fp32 plain; i2v_viz once over the EMA weights (a 50-step CFG DDIM
+     from the batch's own conditioning; fails on a logged "i2v viz failed");
+     the training CLI at the shipped batch of 8 with its peak memory; then
+     the LGM-refine finetune behind the frozen I2V UNet (UNet.use_lgm_refine
+     True, batch 1): 3 steps with asserted launch counts by shape (kernels 1,
+     3 and 4) and the LGM gradient bf16 with the kernels vs fp32 plain.
+Every model is seeded through one cache of draws (``_SeededWeights``): each
+(module layout, seed) is drawn once on the host by the program's
+``init_weights``, and the later phases' trainers and CLIs copy it.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. There is no CPU fallback: with
 no CUDA device the script fails before printing any result.
@@ -86,17 +102,21 @@ no CUDA device the script fails before printing any result.
 kernels; ``--phases env,ffn_ablation`` (``spatial_ablation``,
 ``splat_bwd_ablation``) times kernel 2 (5, 4) with parts compiled out;
 ``--phases env,unet_train_memory`` takes one joint-LAION step at each batch of
-UNET_TRAIN_MEMORY_BATCHES and prints its peak memory or its out-of-memory error.
+UNET_TRAIN_MEMORY_BATCHES and prints its peak memory or its out-of-memory error;
+``--phases env,init_cost`` times the seeded init of the I2V trainer's models as
+a sequential loop (draw, scaling and copy apart) against ``init_models``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -241,6 +261,18 @@ UNET_TRAIN_CHECK_ROWS = (UNET_TRAIN_CLI_BATCH * UNET_TRAIN_VIEWS, UNET_TRAIN_IMA
 # (EMA on) at each (frames, batch) and prints its peak memory and time, or the
 # out-of-memory error where the card cannot hold it
 UNET_TRAIN_MEMORY_BATCHES = ((1, 196), (24, 8), (24, 16), (24, 24))
+# The I2V finetune of configs/i2vgen_xl_train.yaml as shipped (UNetSD_I2VGen,
+# 24 views, block checkpointing, EMA on) at batch 2: kernel 1 serves the same
+# twenty self-attentions a step as in the T2V finetune (UNET_TRAIN_LAUNCHES,
+# unet_train_attn_shapes); the cross-attention over the 145-token I2V context
+# stays on the plain path, as in I2V serving. Its LGM-refine finetune (the
+# same config with UNet.use_lgm_refine True, batch 1) runs the frozen I2V
+# UNet at 24 rows, so its launches a step are the T2V refine step's
+# (TRAIN_LAUNCHES, TRAIN_ATTN_SHAPES).
+I2V_TRAIN_CFG = "configs/i2vgen_xl_train.yaml"
+I2V_TRAIN_STEPS, I2V_TRAIN_BATCH = 3, 2
+I2V_TRAIN_LOG_DIR = "workspace/chip_smoke_i2v_train"
+I2V_TRAIN_OPTS = ["save_ckp_interval", "0", "viz_interval", "0", "log_dir", I2V_TRAIN_LOG_DIR]
 # one refine render: 24 views at 256² of the LGM's 65,536 Gaussians
 SPLAT_VIEWS, SPLAT_SIZE, SPLAT_GAUSSIANS = 24, 256, 65536
 # kernel error vs fp32 must stay within 2x the plain twin's error + this
@@ -299,13 +331,13 @@ SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
 # kernel 4's two variants: the same report
 SPLAT_BWD_KERNELS = ("splat_composite_bwd_culled_kernel", "splat_composite_bwd_kernel")
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train",
-          "unet_train")
+          "unet_train", "i2v_train")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
 # what each part costs), one child process per build (`ffn_times`).
 EXTRA_PHASES = ("ffn_ablation", "ffn_times", "spatial_ablation", "spatial_times",
-                "splat_bwd_ablation", "splat_bwd_times", "unet_train_memory")
+                "splat_bwd_ablation", "splat_bwd_times", "unet_train_memory", "init_cost")
 # `--phases env,spatial_ablation` does the same for kernel 5's wgmma kernels at
 # the served I2V shape (the VMV_SP_* switches of csrc/fused_spatial.cu), with
 # each __global__'s share from torch.profiler (`spatial_times`).
@@ -331,14 +363,18 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60)
         return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "not measured"
     except (OSError, subprocess.SubprocessError):
         return "not measured"
+
+
+# the card's state beside a measurement: device times move with its clocks
+CLOCKS_QUERY = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu,clocks_throttle_reasons.active"
 
 
 def phase_env(torch):
@@ -359,7 +395,7 @@ def phase_env(torch):
     smi = nvidia_smi_line()
     say("env", f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
-        f"deps {mods} tf32 off")
+        f"deps {mods} tf32 off; {CLOCKS_QUERY}: {nvidia_smi_line(CLOCKS_QUERY)}")
     print(smi, flush=True)
     return smi
 
@@ -1305,7 +1341,15 @@ def main(argv=None):
             if not torch.cuda.is_available():
                 fail(f"{kind}_times", "needs a CUDA device")
             return times(torch, args.define)
+    run_t0 = time.time()
     smi = phase_env(torch)
+    if "init_cost" in phases:
+        phase_init_cost(torch)
+    # every model from here on is seeded through the run's cache of draws
+    from videomv_tpu_torch.training import checkpoints
+
+    seeded = _SeededWeights(checkpoints.init_weights)
+    checkpoints.init_weights = seeded
     if "ffn_ablation" in phases:
         phase_ffn_ablation()
     if "spatial_ablation" in phases:
@@ -1320,8 +1364,11 @@ def main(argv=None):
     # step: each counted with the counters reset just before that path ran
     train_run = f"train run of {TRAIN_STEPS} steps"
     unet_train_run = f"UNet train run of {UNET_TRAIN_STEPS} steps"
+    i2v_train_run = f"I2V UNet train run of {I2V_TRAIN_STEPS} steps"
+    i2v_refine_run = f"I2V refine train run of {I2V_TRAIN_STEPS} steps"
     by_path = {"plain request": {}, "refined request": {}, "I2V plain request": {},
-               "I2V refined request": {}, train_run: {}, unet_train_run: {}}
+               "I2V refined request": {}, train_run: {}, unet_train_run: {},
+               i2v_train_run: {}, i2v_refine_run: {}}
     if "unet" in phases:
         phase_unet(torch)
     if "refine" in phases:
@@ -1336,8 +1383,14 @@ def main(argv=None):
         by_path[train_run] = phase_train(torch)
     if "unet_train" in phases:
         by_path[unet_train_run] = phase_unet_train(torch)
+    if "i2v_train" in phases:
+        by_path[i2v_train_run], by_path[i2v_refine_run] = phase_i2v_train(torch)
     if "unet_train_memory" in phases:
         phase_unet_train_memory(torch)
+    say("env", f"seeded weights: {seeded.drawn_s:.1f} s drawing on the host (each model once, "
+        f"summed over the threads that draw at once), {seeded.copied_s:.1f} s copying them "
+        f"onto their devices; the whole run {time.time() - run_t0:.1f} s; {CLOCKS_QUERY}: "
+        f"{nvidia_smi_line(CLOCKS_QUERY)}")
 
     # One entry per kernel. ms, plain_ms, bound_ms and library_ms are totals
     # over one run of the path named in "path": each shape's time per call
@@ -1408,14 +1461,14 @@ def _pipeline(torch):
     if _PIPE is None:
         from videomv_tpu_torch.config import load_inference_config
         from videomv_tpu_torch.inference import T2VPipeline
-        from videomv_tpu_torch.training.checkpoints import init_weights
+        from videomv_tpu_torch.training.checkpoints import init_models
 
         os.chdir(ROOT)  # the configs' relative paths (prompts, log_dir)
         pipe = T2VPipeline(load_inference_config("configs/t2v_infer.yaml"), device="cuda")
         if pipe.lgm is None:
             fail("slice", "configs/t2v_infer.yaml no longer sets UNet.use_lgm_refine")
-        for name, seed in _SEEDS.items():
-            init_weights(pipe.models[name], seed=seed, zero_init=False, device=pipe.device)
+        init_models([(pipe.models[name], seed) for name, seed in _SEEDS.items()],
+                    zero_init=False, device=pipe.device)
         pipe.load_state_dicts(unet=_host_unet(torch).state_dict())  # casts all to bf16
         _PIPE = pipe
     return _PIPE
@@ -1771,6 +1824,7 @@ def phase_i2v(torch):
     switch on."""
     import copy
     import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -1781,7 +1835,7 @@ def phase_i2v(torch):
     from videomv_tpu_torch.inference.__main__ import main as cli_main
     from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
     from videomv_tpu_torch.models import UNetSD_I2VGen
-    from videomv_tpu_torch.training.checkpoints import init_weights
+    from videomv_tpu_torch.training.checkpoints import init_models, init_weights
 
     global _PIPE, _HOST_UNET
     _PIPE = _HOST_UNET = None  # the T2V serving models are done
@@ -1798,10 +1852,13 @@ def phase_i2v(torch):
         fail("i2v", f"no image listed in {cfg.test_list_path}")
     with torch.device("meta"):
         host = UNetSD_I2VGen(**unet_kwargs_from_cfg(cfg.UNet))
-    host = init_weights(host, seed=0, zero_init=False, device="cpu").eval().requires_grad_(False)
     pipe = I2VPipeline(cfg, device="cuda")
-    for name, seed in _SEEDS.items():
-        init_weights(pipe.models[name], seed=seed, zero_init=False, device=pipe.device)
+    # the host UNet and the card's towers drawn at once
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        drawn = pool.submit(init_weights, host, 0, False, "cpu")
+        init_models([(pipe.models[name], seed) for name, seed in _SEEDS.items()],
+                    zero_init=False, device=pipe.device)
+        host = drawn.result().eval().requires_grad_(False)
     pipe.load_state_dicts(unet=host.state_dict())  # casts all to bf16
     n_par = {k: sum(p.numel() for p in m.parameters()) / 1e6 for k, m in pipe.models.items()}
     say("i2v", f"I2VPipeline of {I2V_CFG}: parameters (M) {n_par}, dtype {pipe.dtype}, guidance "
@@ -2192,6 +2249,7 @@ def phase_train(torch):
     from videomv_tpu_torch.config import load_config
     from videomv_tpu_torch.ops import gaussian_splat as tgs
     from videomv_tpu_torch.ops import splat
+    from videomv_tpu_torch.parallel import make_t2v_apply
     from videomv_tpu_torch.training.__main__ import main as train_cli
     from videomv_tpu_torch.training.engine import T2VTrainer
     from videomv_tpu_torch.training.lgm_refine import build_lgm_refine_step, draw_refine_randoms
@@ -2296,7 +2354,7 @@ def phase_train(torch):
         # step runs them
         timers = _EventTimers(torch)
         timed_step = build_lgm_refine_step(
-            _Timed(trainer.unet, timers, "unet forward"),
+            make_t2v_apply(_Timed(trainer.unet, timers, "unet forward")),
             _Timed(trainer.vae, timers, "vae decode", "decode"),
             _Timed(trainer.lgm, timers, "lgm forward"), trainer.diffusion,
             **trainer._step_kwargs)
@@ -2427,7 +2485,8 @@ def phase_train(torch):
 
     loss16, g16 = lgm_grads(trainer.refine_step)
     kw = dict(trainer._step_kwargs, autocast_dtype=None)
-    plain = build_lgm_refine_step(trainer.unet, trainer.vae, trainer.lgm, trainer.diffusion, **kw)
+    plain = build_lgm_refine_step(trainer.unet_apply, trainer.vae, trainer.lgm, trainer.diffusion,
+                                  **kw)
     with _TwinSplat():
         ops.reset_launch_counts()
         loss32, g32 = lgm_grads(plain)
@@ -2835,6 +2894,508 @@ def phase_unet_train(torch):
     gc.collect()
     torch.cuda.empty_cache()
     return main_counts
+
+
+def phase_i2v_train(torch):
+    """configs/i2vgen_xl_train.yaml as shipped (no override to the model) at
+    full width on the card: (a) the I2V UNet finetune — T2VTrainer takes
+    I2V_TRAIN_STEPS steps at batch I2V_TRAIN_BATCH (launch counters reset
+    just before, read just after and held by shape), then a step by parts,
+    the busy share and one step's UNet gradient bf16 with kernel 1 vs fp32
+    plain; (b) i2v_viz once over the EMA weights, hit by viz_interval inside
+    a one-step run; the CLI at the shipped batch with its peak memory; (c) the
+    same config with UNet.use_lgm_refine True: I2V_TRAIN_STEPS LGM-refine
+    steps at batch 1 behind the frozen I2V UNet with launches held by shape,
+    and the LGM gradient bf16 with kernels 3 + 4 vs fp32 plain. Returns the
+    launch counts of the two runs of (a) and (c)."""
+    import gc
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.data.datasets import SyntheticMVDataset, batch_iterator
+    from videomv_tpu_torch.models import OpenCLIPTextVisual, UNetSD_I2VGen
+    from videomv_tpu_torch.parallel import build_train_step, draw_train_randoms, make_i2v_apply
+    from videomv_tpu_torch.parallel.train_step import _dropout_stream
+    from videomv_tpu_torch.training.__main__ import main as train_cli
+    from videomv_tpu_torch.training.engine import T2VTrainer
+    from videomv_tpu_torch.training.lgm_refine import build_lgm_refine_step, draw_refine_randoms
+
+    global _PIPE, _HOST_UNET
+    _PIPE = _HOST_UNET = None  # the trainer builds its own models
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.chdir(ROOT)
+    phase_t0 = t0 = time.time()
+    shipped = load_config(I2V_TRAIN_CFG)
+    cfg = load_config(I2V_TRAIN_CFG, opts=I2V_TRAIN_OPTS)
+    trainer = T2VTrainer(cfg, device="cuda").init(zero_init=False)
+    unet, dev, opt = trainer.unet, trainer.device, trainer.state.optimizer
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_clip = sum(p.numel() for p in trainer.clip.parameters())
+    dropouts = [m for m in unet.modules() if isinstance(m, torch.nn.Dropout)]
+    d = trainer.diffusion
+    say("i2v_train", f"T2VTrainer of {I2V_TRAIN_CFG} (is_i2v {trainer.is_i2v}): "
+        f"{type(unet).__name__} dim {unet.dim} x {tuple(unet.dim_mult)}, {n_unet / 1e9:.3f} B "
+        f"parameters all trained (fp32, autocast {trainer.dtype}), use_checkpoint "
+        f"{unet.use_checkpoint}, dropout {sorted({m.p for m in dropouts})}; "
+        f"{type(trainer.clip).__name__} {n_clip / 1e6:.1f} M frozen in "
+        f"{next(trainer.clip.parameters()).dtype}; diffusion {cfg.Diffusion.schedule} "
+        f"{dict(cfg.Diffusion.schedule_param)} / {d.mean_type}, "
+        f"noise_strength {d.noise_strength}; p_zero {cfg.p_zero}; {type(opt).__name__} with "
+        f"grad_scale {opt.grad_scale} on {len(opt.scaled)} SD-origin tensors; EMA "
+        f"{trainer.state.ema is not None}; {trainer.max_frames} views at {trainer.resolution}; "
+        f"init {time.time() - t0:.1f}s")
+    if (not trainer.is_i2v or not isinstance(unet, UNetSD_I2VGen) or trainer.use_lgm_refine
+            or not isinstance(trainer.clip, OpenCLIPTextVisual) or not unet.use_checkpoint
+            or unet.dim != 320 or not n_unet > 1.42e9 or trainer.state.ema is None
+            or d.mean_type != "v" or d.noise_strength != 0.1 or float(cfg.p_zero) != 0.0
+            or opt.grad_scale != 0.5 or not opt.scaled
+            or trainer.max_frames != UNET_TRAIN_VIEWS):
+        fail("i2v_train", f"{I2V_TRAIN_CFG} no longer ships the full-width I2V finetune")
+
+    def checksum(module):
+        """Exact integer sums of every parameter's bits: equal before and
+        after means bit-identical (up to a collision of sums)."""
+        return [p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
+                .long().sum().item() for p in module.parameters()]
+
+    frozen = {n: checksum(getattr(trainer, n)) for n in ("vae", "clip")}
+    before = checksum(unet)
+    ema_before = [e.detach().view(torch.int32).long().sum().item() for e in trainer.state.ema]
+
+    # ---- (a) the main path: I2V_TRAIN_STEPS steps through T2VTrainer.train
+    t0 = time.time()
+    losses = []
+    step_fn = trainer.train_step
+
+    def logged_step(*a, **k):
+        loss = step_fn(*a, **k)
+        losses.append(loss)
+        return loss
+    trainer.train_step = logged_step
+    n_threads = threading.active_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    last = trainer.train(num_steps=I2V_TRAIN_STEPS, batch_size=I2V_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+    unet_counts = counts
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer.train_step = step_fn
+    vals = [float(x) for x in losses]
+    rows = I2V_TRAIN_BATCH * UNET_TRAIN_VIEWS
+    say("i2v_train", f"{I2V_TRAIN_STEPS} steps at batch {I2V_TRAIN_BATCH} ({rows} rows) in "
+        f"{run_s:.3f} s (the first includes warm-up), peak {peak:.2f} GiB, loss per step "
+        f"{vals}, launches {counts}, attention launches by shape {shapes['flash_attention']}")
+    want = {k: v * I2V_TRAIN_STEPS for k, v in UNET_TRAIN_LAUNCHES.items()}
+    if counts != want:
+        fail("i2v_train", f"expected launches {want}, got {counts}")
+    want = {"flash_attention": {k: v * I2V_TRAIN_STEPS
+                                for k, v in unet_train_attn_shapes(rows).items()},
+            "geglu_ffn": {}, "fused_spatial": {}}
+    if shapes != want:
+        fail("i2v_train", f"expected launches by shape {want}, got {shapes}")
+    if len(vals) != I2V_TRAIN_STEPS or not all(v == v and abs(v) < 1e30 for v in vals):
+        fail("i2v_train", f"non-finite loss in {vals}")
+    if last != vals[-1] or trainer.state.step != I2V_TRAIN_STEPS:
+        fail("i2v_train", "train() did not return the last loss after I2V_TRAIN_STEPS steps")
+    if threading.active_count() != n_threads:
+        fail("i2v_train", "the prefetch worker outlived train()")
+    after = checksum(unet)
+    still = sum(a == b for a, b in zip(before, after))
+    ema_after = [e.detach().view(torch.int32).long().sum().item() for e in trainer.state.ema]
+    ema_still = sum(a == b for a, b in zip(ema_before, ema_after))
+    # an EMA tensor whose step is below its float32 ulp at decay 0.9999 may stay
+    if still or ema_still == len(after):
+        fail("i2v_train", f"{still} UNet and {ema_still} EMA tensors of {len(after)} did not move")
+    for name, sums in frozen.items():
+        if sums != checksum(getattr(trainer, name)):
+            fail("i2v_train", f"the frozen {name} changed")
+    say("i2v_train", f"all {len(after)} UNet parameter tensors moved, their EMA "
+        f"{len(after) - ema_still}; VAE and text + visual towers bit-identical; optimizer count "
+        f"{opt.count}; "
+        f"{time.time() - t0:.1f}s")
+    del before, after, frozen, ema_before, ema_after
+
+    # ---- a step by parts (CUDA events), median of 3, and the host wall
+    t0 = time.time()
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames),
+                               I2V_TRAIN_BATCH))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p_zero = float(cfg.get("p_zero", 0.1))
+    ema, decay = trainer.state.ema, float(cfg.get("ema_decay", 0.9999))
+    runs, walls = [], []
+    for _ in range(3):
+        timers = _EventTimers(torch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with timers(f"encode (VAE {rows} frames, text, view 0 through the visual tower)"):
+            feats = trainer.encode_batch(host)
+        draws = draw_train_randoms(gen, feats["latents"], trainer.diffusion, p_zero)
+        opt.zero_grad()
+        with _dropout_stream(gen):
+            with timers("forward (q_sample, UNet, loss)"):
+                loss = trainer.train_step.loss_fn(feats, draws)
+            with timers("backward (recompute + grads)"):
+                loss.backward()
+        with timers("optimizer (AdamW, key scale)"):
+            opt.step()
+        with timers("EMA lerp"), torch.no_grad():
+            torch._foreach_mul_(ema, decay)
+            torch._foreach_add_(ema, [p.detach() for p in unet.parameters()], alpha=1 - decay)
+        ms = timers.ms()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        runs.append(ms)
+    trainer.state.step += 3
+    del loss
+    parts = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+    say("i2v_train", "CUDA events, one step by part (median of 3): " + "; ".join(
+        f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f} ms; host wall of the step, median "
+        f"{sorted(walls)[1]:.2f} ms (walls {[round(w, 2) for w in walls]}); {CLOCKS_QUERY}: "
+        f"{nvidia_smi_line(CLOCKS_QUERY)}; {time.time() - t0:.1f}s")
+
+    # ---- the device busy share of whole steps under torch.profiler
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(trainer.state, trainer.encode_batch(host), generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    del prof
+    say("i2v_train", (f"torch.profiler, 2 train steps (encode included): wall {wall_ms / 2:.2f} "
+                      f"ms, kernels {busy / 2:.2f} ms per step, device busy "
+                      f"{100 * busy / wall_ms:.1f}%" if busy else
+                      "torch.profiler recorded no device time: busy share not measured")
+        + f"; {time.time() - t0:.1f}s")
+
+    # ---- one step's UNet gradient: bf16 autocast + kernel 1 vs fp32 + plain
+    # paths, same batch and draws, every dropout at p = 0 in training mode
+    t0 = time.time()
+    feats = trainer.encode_batch(host)
+    draws = draw_train_randoms(gen, feats["latents"], trainer.diffusion, p_zero)
+    kept = [m.p for m in dropouts]
+    for m in dropouts:
+        m.p = 0.0
+
+    def unet_grad(loss_fn):
+        opt.zero_grad()
+        loss = loss_fn(feats, draws)
+        loss.backward()
+        flat = torch.cat([p.grad.flatten() for p in unet.parameters()])
+        opt.zero_grad()
+        return loss.item(), flat
+
+    ops.reset_launch_counts()
+    loss16, g16 = unet_grad(trainer.train_step.loss_fn)
+    k16 = ops.launch_counts()["flash_attention"]
+    plain = build_train_step(make_i2v_apply(unet), trainer.diffusion, use_ema=False,
+                             p_zero=p_zero, zero_y=trainer.zero_y, autocast_dtype=None)
+    ops.reset_launch_counts()
+    loss32, g32 = unet_grad(plain.loss_fn)
+    if any(ops.launch_counts().values()) or k16 != UNET_TRAIN_LAUNCHES["flash_attention"]:
+        fail("i2v_train", f"launches: bf16 step {k16}, fp32 step {ops.launch_counts()}")
+    for m, p in zip(dropouts, kept):
+        m.p = p
+    cos = (torch.dot(g16, g32) / (g16.norm() * g32.norm())).item()
+    ratio = (g16.norm() / g32.norm()).item()
+    rel_l2 = ((g16 - g32).norm() / g32.norm()).item()
+    say("i2v_train", f"I2V UNet gradient of one step ({g16.numel() / 1e9:.3f} B values), same "
+        f"batch and draws, dropout 0 in training mode, bf16 autocast + kernel 1 vs fp32 + plain "
+        f"paths: loss {loss16:.6f} vs {loss32:.6f}, cosine {cos:.4f} (bound >= "
+        f"{TRAIN_GRAD_MIN_COS}), |g16|/|g32| {ratio:.4f} (bound {TRAIN_GRAD_NORM_RATIO}), "
+        f"|d|/|ref| {rel_l2:.3e}; {time.time() - t0:.1f}s")
+    if (not cos >= TRAIN_GRAD_MIN_COS
+            or not TRAIN_GRAD_NORM_RATIO[0] <= ratio <= TRAIN_GRAD_NORM_RATIO[1]):
+        fail("i2v_train", "the bf16 gradient disagrees with the fp32 one")
+    del g16, g32, feats, plain
+
+    # ---- (b) i2v_viz once over the EMA weights: viz_interval hits the next
+    # step of a one-step run; a logged "i2v viz failed" fails the phase
+    t0 = time.time()
+    step = trainer.state.step + 1
+    trainer.cfg.viz_interval = step
+    viz_path = os.path.join(trainer.cfg.log_dir, "viz", f"viz_step_{step:08d}")
+    logs = _LogCapture("videomv_tpu_torch.training.engine")
+    with logs:
+        ops.reset_launch_counts()
+        trainer.train(num_steps=1, batch_size=I2V_TRAIN_BATCH)
+        torch.cuda.synchronize()
+        viz_counts, viz_shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+    written = [p for p in (viz_path + ".mp4", viz_path) if os.path.exists(p)]
+    failed = [r for r in logs.records if "i2v viz failed" in r]
+    say("i2v_train", f"i2v_viz at step {step} (viz_interval {step}, {cfg.get('ddim_timesteps', 50)} "
+        f"DDIM steps, CFG {cfg.visual_train.guide_scale}, EMA weights): wrote {written}, "
+        f"launches of the one-step run with it {viz_counts}, attention by shape "
+        f"{viz_shapes['flash_attention']}, UNet back in training mode {unet.training}; "
+        f"{time.time() - t0:.1f}s")
+    if failed or not written or not unet.training or not any(
+            "wrote i2v visualization" in r for r in logs.records):
+        fail("i2v_train", f"i2v_viz wrote nothing: {failed or logs.records[-3:]}")
+    del trainer, unet, opt, step_fn, ema, host, dropouts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the CLI once, on the card by default, at the shipped batch
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    loss = train_cli(["--cfg", I2V_TRAIN_CFG, "--steps", "2", "log_dir", I2V_TRAIN_LOG_DIR])
+    cli_peak = torch.cuda.max_memory_allocated() / 2**30
+    say("i2v_train", f"CLI main() --cfg {I2V_TRAIN_CFG} --steps 2 (the shipped batch_sizes "
+        f"{dict(shipped.batch_sizes)}, EMA on, no model override): final loss {loss:.6f}, peak "
+        f"{cli_peak:.2f} GiB; {time.time() - t0:.1f}s with init")
+    if not loss == loss:
+        fail("i2v_train", "the CLI's loss is not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the LGM-refine finetune behind the frozen I2V UNet
+    t0 = time.time()
+    rcfg = load_config(I2V_TRAIN_CFG, opts=[*I2V_TRAIN_OPTS, "UNet.use_lgm_refine", "True"])
+    trainer = T2VTrainer(rcfg, device="cuda").init(zero_init=False)
+    lopt = trainer.lgm.opt
+    say("i2v_train", f"T2VTrainer of {I2V_TRAIN_CFG} + use_lgm_refine: frozen "
+        f"{type(trainer.unet).__name__} in {next(trainer.unet.parameters()).dtype} (training "
+        f"mode {trainer.unet.training}), LGM {sum(p.numel() for p in trainer.lgm.parameters()) / 1e6:.1f} M "
+        f"trained, {lopt.num_views} supervision views at {lopt.output_size}², view chunk "
+        f"{trainer._step_kwargs['view_chunk']}; init {time.time() - t0:.1f}s")
+    if (not trainer.is_i2v or (lopt.output_size, trainer._step_kwargs["view_chunk"])
+            != (TRAIN_RENDER_SIZE, TRAIN_VIEW_CHUNK) or not trainer.unet.training):
+        fail("i2v_train", "the I2V refine no longer renders 512² in chunks of 2 views")
+    t0 = time.time()
+    lgm_before = [p.detach().to("cpu", copy=True) for p in trainer.lgm.parameters()]
+    unet_sums = checksum(trainer.unet)
+    rlosses = []
+    rstep = trainer.refine_step
+
+    def logged_refine(*a, **k):
+        loss, aux = rstep(*a, **k)
+        rlosses.append((loss, aux["psnr"], aux["loss_lpips"]))
+        return loss, aux
+    trainer.refine_step = logged_refine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    trainer.train(num_steps=I2V_TRAIN_STEPS, batch_size=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    refine_counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer.refine_step = rstep
+    vals = [[float(x) for x in row] for row in rlosses]
+    say("i2v_train", f"I2V refine: {I2V_TRAIN_STEPS} steps at batch 1 in {run_s:.3f} s (the "
+        f"first includes warm-up), peak {peak:.2f} GiB, (loss, psnr, lpips) per step {vals}, "
+        f"launches {refine_counts}, attention by shape {shapes['flash_attention']}")
+    want = {k: v * I2V_TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    if refine_counts != want:
+        fail("i2v_train", f"refine: expected launches {want}, got {refine_counts}")
+    want = {"flash_attention": {k: v * I2V_TRAIN_STEPS for k, v in TRAIN_ATTN_SHAPES.items()},
+            "geglu_ffn": {}, "fused_spatial": {}}
+    if shapes != want:
+        fail("i2v_train", f"refine: expected launches by shape {want}, got {shapes}")
+    if len(vals) != I2V_TRAIN_STEPS or not all(x == x and abs(x) < 1e30 for r in vals for x in r):
+        fail("i2v_train", f"refine: non-finite loss in {vals}")
+    moved = max((a - b.detach().cpu()).abs().max().item()
+                for a, b in zip(lgm_before, trainer.lgm.parameters()))
+    if not moved > 0 or checksum(trainer.unet) != unet_sums:
+        fail("i2v_train", "refine: the LGM did not move or the frozen I2V UNet changed")
+    del lgm_before
+
+    # the LGM gradient of one step from the same LGM input: bf16 autocast +
+    # kernels vs fp32 + plain paths
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames), 1))
+    feats = trainer.encode_batch(host)
+    feats.update(trainer._gs_features(host))
+    draws = draw_refine_randoms(gen, feats["latents"], trainer.diffusion,
+                                lopt.num_input_views, lopt.num_views - lopt.num_input_views)
+    prep = trainer.refine_step.prepare(feats, draws)
+
+    def lgm_grads(step):
+        trainer.lgm_state.optimizer.zero_grad()
+        loss, _ = step.loss_from(prep)
+        loss.backward()
+        flat = torch.cat([p.grad.flatten() for p in trainer.lgm.parameters()])
+        trainer.lgm_state.optimizer.zero_grad()
+        return loss.item(), flat
+
+    ops.reset_launch_counts()
+    loss16, g16 = lgm_grads(trainer.refine_step)
+    k16 = ops.launch_counts()
+    plain = build_lgm_refine_step(trainer.unet_apply, trainer.vae, trainer.lgm,
+                                  trainer.diffusion,
+                                  **dict(trainer._step_kwargs, autocast_dtype=None))
+    with _TwinSplat():
+        ops.reset_launch_counts()
+        loss32, g32 = lgm_grads(plain)
+        if any(ops.launch_counts().values()):
+            fail("i2v_train", f"the fp32 reference launched kernels: {ops.launch_counts()}")
+    cos = (torch.dot(g16, g32) / (g16.norm() * g32.norm())).item()
+    ratio = (g16.norm() / g32.norm()).item()
+    rel_l2 = ((g16 - g32).norm() / g32.norm()).item()
+    say("i2v_train", f"I2V refine LGM gradient of one step ({g16.numel() / 1e6:.1f} M values) "
+        f"from the same LGM input, bf16 autocast + kernels ({k16}) vs fp32 + plain paths: loss "
+        f"{loss16:.6f} vs {loss32:.6f}, cosine {cos:.4f} (bound >= {TRAIN_GRAD_MIN_COS}), "
+        f"|g16|/|g32| {ratio:.4f} (bound {TRAIN_GRAD_NORM_RATIO}), |d|/|ref| {rel_l2:.3e}; "
+        f"{time.time() - t0:.1f}s")
+    if (not cos >= TRAIN_GRAD_MIN_COS
+            or not TRAIN_GRAD_NORM_RATIO[0] <= ratio <= TRAIN_GRAD_NORM_RATIO[1]
+            or not k16["splat_composite"] or not k16["splat_composite_bwd"]):
+        fail("i2v_train", "the I2V refine's bf16 LGM gradient disagrees with the fp32 one")
+    del trainer, g16, g32, prep, feats, plain, rstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("i2v_train", f"phase {time.time() - phase_t0:.1f}s")
+    return unet_counts, refine_counts
+
+
+class _LogCapture(logging.Handler):
+    """Within ``with``, keeps the messages (INFO and up) that the named
+    logger emits; its level is restored on exit."""
+
+    def __init__(self, name):
+        super().__init__(level=logging.INFO)
+        self.records, self._logger = [], logging.getLogger(name)
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+    def __enter__(self):
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._level)
+
+
+class _SeededWeights:
+    """Stands in for ``training.checkpoints.init_weights`` for the run (every
+    model of every phase is seeded through it): each (module layout, seed)
+    is drawn once, by the program's own ``init_weights`` with ``zero_init=
+    False`` on the host, and kept there. Any later request for it copies the
+    kept values and, with ``zero_init``, zeroes the zero-init layers, which
+    is what ``init_weights`` makes of the same draw. So the trainers of the
+    later phases take the seeded UNets and towers of the earlier ones
+    instead of drawing them again."""
+
+    def __init__(self, init_weights):
+        self._init, self._kept, self._key_locks = init_weights, {}, {}
+        self._lock = threading.Lock()
+        self.drawn_s = self.copied_s = 0.0
+
+    def __call__(self, module, seed, zero_init=True, device=None):
+        import copy
+
+        import torch
+
+        from videomv_tpu_torch.training.checkpoints import _zero_init_names
+
+        key = (type(module).__name__, int(seed),
+               tuple((n, tuple(p.shape)) for n, p in module.named_parameters()))
+        with self._lock:
+            key_lock = self._key_locks.setdefault(key, threading.Lock())
+        with key_lock:
+            if key not in self._kept:
+                t0 = time.perf_counter()
+                host = self._init(copy.deepcopy(module), seed, zero_init=False, device="cpu")
+                self._kept[key] = {n: p.detach() for n, p in host.named_parameters()}
+                self.drawn_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kept = self._kept[key]
+        if device is not None:
+            module.to_empty(device=device)
+        zeros = _zero_init_names(module) if zero_init else set()
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                if n in zeros:
+                    p.zero_()
+                else:
+                    p.copy_(kept[n])
+        self.copied_s += time.perf_counter() - t0
+        return module
+
+
+def phase_init_cost(torch):
+    """Where the seeded init of the I2V trainer's models (configs/
+    i2vgen_xl_train.yaml: UNetSD_I2VGen, the joint text + visual tower, the
+    SD VAE) spends its time, onto the card: the sequential loop that
+    ``init_weights`` ran before (each parameter drawn, scaled and copied in
+    turn; the three parts timed apart), then ``init_models`` of the three at
+    once (the draw in a worker thread ahead of the scaling and copy, the
+    models in threads); the two must give bit-identical parameters."""
+    import math
+
+    import numpy as np
+
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
+    from videomv_tpu_torch.models import AutoencoderKL, OpenCLIPTextVisual, UNetSD_I2VGen
+    from videomv_tpu_torch.training.checkpoints import _zero_init_names, init_models
+
+    cfg = load_config(os.path.join(ROOT, I2V_TRAIN_CFG))
+
+    def build():
+        with torch.device("meta"):
+            return [(UNetSD_I2VGen(**unet_kwargs_from_cfg(cfg.UNet)), 0),
+                    (AutoencoderKL(), 1), (OpenCLIPTextVisual(), 2)]
+
+    old, parts = build(), {"draw": 0.0, "scale": 0.0, "copy": 0.0}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for module, seed in old:  # init_weights as a sequential loop
+            module.to_empty(device="cuda")
+            rng = np.random.default_rng(seed)
+            zeros = _zero_init_names(module)
+            for name, p in module.named_parameters():
+                shape = tuple(p.shape)
+                t1 = time.perf_counter()
+                n = rng.standard_normal(shape, dtype=np.float32)
+                t2 = time.perf_counter()
+                if name in zeros:
+                    val = np.zeros(shape, np.float32)
+                elif len(shape) >= 2:
+                    val = n * np.float32(math.prod(shape[1:]) ** -0.5)
+                elif name.endswith("weight"):
+                    val = 1.0 + 0.1 * n
+                else:
+                    val = 0.1 * n
+                t3 = time.perf_counter()
+                p.copy_(torch.from_numpy(val))
+                parts["draw"] += t2 - t1
+                parts["scale"] += t3 - t2
+                parts["copy"] += time.perf_counter() - t3
+    torch.cuda.synchronize()
+    old_s = time.perf_counter() - t0
+    new = build()
+    t0 = time.perf_counter()
+    init_models(new, device="cuda")
+    torch.cuda.synchronize()
+    new_s = time.perf_counter() - t0
+    n_vals = sum(p.numel() for m, _ in old for p in m.parameters())
+    same = all(torch.equal(a, b) for (ma, _), (mb, _) in zip(old, new)
+               for a, b in zip(ma.parameters(), mb.parameters()))
+    say("init_cost", f"seeded init of UNetSD_I2VGen + SD VAE + joint CLIP ({n_vals / 1e9:.3f} B "
+        f"values, zero_init on) onto the card: the sequential loop {old_s:.1f} s (numpy draw "
+        f"{parts['draw']:.1f} s, scaling {parts['scale']:.1f} s, host-to-device copy "
+        f"{parts['copy']:.1f} s); init_models {new_s:.1f} s; bit-identical {same}; "
+        f"{os.cpu_count()} host cores")
+    if not same:
+        fail("init_cost", "init_models drew other values than the sequential loop")
 
 
 def phase_unet_train_memory(torch):

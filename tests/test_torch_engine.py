@@ -123,15 +123,16 @@ def test_gs_features_wire(small_towers, tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """I2V training and ``param_sharding: fsdp`` are not ported and raise
-    (the plain UNet finetune, ``use_lgm_refine False``, is: see the tests
-    below)."""
-    for opts, match in ((["TASK_TYPE", "train_i2v_entrance"], "I2V training"),
-                        (["UNet.type", "UNetSD_I2VGen"], "I2V training"),
-                        (["param_sharding", "fsdp"], "slice E")):
-        cfg = load_config(TINY_CFG, opts=opts)
-        with pytest.raises(NotImplementedError, match=match):
-            engine.T2VTrainer(cfg, device="cpu")
+    """``param_sharding: fsdp`` is not ported and raises; the I2V trainer
+    (either switch) builds on the CPU (the plain UNet finetune,
+    ``use_lgm_refine False``, too: see the tests below)."""
+    cfg = load_config(TINY_CFG, opts=["param_sharding", "fsdp"])
+    with pytest.raises(NotImplementedError, match="slice E"):
+        engine.T2VTrainer(cfg, device="cpu")
+    for opts in (["TASK_TYPE", "train_i2v_entrance"], ["UNet.type", "UNetSD_I2VGen"]):
+        tr = engine.T2VTrainer(load_config(TINY_CFG, opts=opts), device="cpu")
+        assert tr.is_i2v and type(tr.unet).__name__ == "UNetSD_I2VGen"
+        assert type(tr.clip).__name__ == "OpenCLIPTextVisual"
     cfg = load_config(TINY_CFG, opts=["UNet.use_lgm_refine", "False", "prng_impl", "rbg"])
     assert not engine.T2VTrainer(cfg, device="cpu").use_lgm_refine
 

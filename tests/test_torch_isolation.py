@@ -26,7 +26,8 @@ IMPORTS = (
     "videomv_tpu_torch.ops.fused_spatial", "videomv_tpu_torch.parallel",
     "videomv_tpu_torch.parallel.train_step", "videomv_tpu_torch.training.hooks",
     "videomv_tpu_torch.data.laion", "videomv_tpu_torch.data.native_loader",
-    "videomv_tpu_torch.utils.video_io",
+    "videomv_tpu_torch.utils.video_io", "videomv_tpu_torch.utils.seed",
+    "videomv_tpu_torch.data.recenter",
 )
 
 

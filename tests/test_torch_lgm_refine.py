@@ -34,6 +34,7 @@ from videomv_tpu_torch.diffusion import GaussianDiffusion
 from videomv_tpu_torch.models import AutoencoderKL, UNetSD_T2VBase
 from videomv_tpu_torch.models.lgm import LGM, LGMOptions
 from videomv_tpu_torch.models.lpips import LPIPS
+from videomv_tpu_torch.parallel import make_t2v_apply
 from videomv_tpu_torch.training.checkpoints import state_dict_from_flax
 from videomv_tpu_torch.training.lgm_refine import RefineDraws, build_lgm_refine_step
 
@@ -149,7 +150,8 @@ def port(setup):
 
     def run(draws, use_checkpoint=False, view_chunk=0, host_cameras=False):
         lgm = _port(LGM(LGMOptions(**LGM_OPT), use_checkpoint=use_checkpoint), params["lgm"])
-        step = build_lgm_refine_step(unet, vae, lgm.train(), GaussianDiffusion(**DIFFUSION),
+        step = build_lgm_refine_step(make_t2v_apply(unet), vae, lgm.train(),
+                                     GaussianDiffusion(**DIFFUSION),
                                      lpips=lpips, view_chunk=view_chunk, **STEP)
         b = dict(tbatch)
         if host_cameras:  # the host chain, per sample, as the engine prepares it
@@ -237,7 +239,7 @@ def test_step_updates_only_the_lgm_and_draws_from_its_generator(setup, port):
         lgm = _port(LGM(LGMOptions(**LGM_OPT)), params["lgm"]).train()
         unet = _port(UNetSD_T2VBase(**UNET), params["unet"]).train().requires_grad_(False)
         vae = _port(AutoencoderKL(**VAE), params["vae"]).eval().requires_grad_(False)
-        step = build_lgm_refine_step(unet, vae, lgm, diffusion, **STEP)
+        step = build_lgm_refine_step(make_t2v_apply(unet), vae, lgm, diffusion, **STEP)
         state = LGMTrainState(0, lgm, build_optimizer(lgm.parameters(), lr=1e-3, warmup_steps=0))
         before = [p.detach().clone() for p in lgm.parameters()]
         frozen = [p.detach().clone() for p in unet.parameters()]

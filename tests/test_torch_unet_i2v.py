@@ -204,3 +204,23 @@ def test_adaptive_avg_pool_matches_jax(hw, out):
     want = np.asarray(junet.adaptive_avg_pool_2d(jnp.asarray(x), out))
     got = tunet.adaptive_avg_pool_2d(torch.from_numpy(x).permute(0, 3, 1, 2), out)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_middle_block_keeps_its_temporal_transformer():
+    """With ``temporal_attention=False`` the JAX I2V UNet still runs a
+    temporal transformer in its middle block (unet_i2v.py:249-254), unlike
+    the T2V UNet; the port builds the same blocks and gives the same output."""
+    kw = dict(TINY, temporal_attention=False, attn_scales=(1.0,))
+    jm = junet.UNetSD_I2VGen(**kw)
+    i = _inputs(4)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((B, 4, F_, HW, HW)), jnp.zeros((B,), jnp.int32),
+        y=jnp.zeros((B, 7, TINY["context_dim"])), camera_data=jnp.zeros((B, F_, 16)),
+        local_image=jnp.zeros((B, 4, 1, HW, HW)), image=jnp.zeros((B, TINY["y_dim"]))))
+    params = seeded_like(shapes, seed=12)
+    tm = _port(tunet.UNetSD_I2VGen(**kw), params)
+    assert [type(m).__name__ for m in tm.middle_block] == [
+        "ResBlock", "SpatialTransformer", "TemporalTransformer", "ResBlock"]
+    want = np.asarray(jm.apply(params, i["x"], i["t"], y=i["y"], camera_data=i["cam"],
+                               local_image=i["local"], image=i["image"]))
+    assert rel_err(_run_port(tm, i), want) <= UNET_REL_TOL

@@ -1,14 +1,18 @@
 """Host-side data for training (numpy and Pillow only): the G-Objaverse
-multiview render dataset, the procedural multiview dataset, batching and
-the background prefetcher.
+multiview render datasets (T2V and I2V), the image-list dataset, the
+procedural multiview dataset, batching and the background prefetcher.
 
-A copy of what the T2V finetunes need from ``videomv_tpu/data/datasets.py``;
-tests pin the two together. ``GObjaverseVideoDataset`` (reference
-tools/datasets/video_dataset.py): 24 fixed orbit renders per object, RGBA
-composited onto grey 128, full-size frames and masks for the Gaussian
-supervision, per-view 4×4 camera-to-world matrices from JSON (flattened to
-16, y and z negated), Plücker rays and colmap cameras from ``prepare_gs``,
-captions from a cap3d JSON with ", 3d asset" appended, a failed item skipped.
+A copy of ``videomv_tpu/data/datasets.py``; tests pin the two together.
+``GObjaverseVideoDataset`` (reference tools/datasets/video_dataset.py): 24
+fixed orbit renders per object, RGBA composited onto grey 128, full-size
+frames and masks for the Gaussian supervision, per-view 4×4 camera-to-world
+matrices from JSON (flattened to 16, y and z negated), Plücker rays and
+colmap cameras from ``prepare_gs``, captions from a cap3d JSON with ", 3d
+asset" appended, a failed item skipped. ``GObjaverseI2VDataset`` (reference
+video_i2v_dataset.py): the same on white 255, empty captions, the view
+sequence rolled by a random azimuth. ``ImageListDataset`` (reference
+image_dataset.py): ``path|||caption`` lists, one image padded to the video
+shape.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ import numpy as np
 from .cameras import GSCameraSettings, get_camera, prepare_gs_training
 from .native_loader import load_views
 
-__all__ = ["GObjaverseVideoDataset", "SyntheticMVDataset", "batch_iterator", "cycle_epochs",
-           "prefetch_host", "read_camera_matrix_single"]
+__all__ = ["GObjaverseI2VDataset", "GObjaverseVideoDataset", "ImageListDataset",
+           "SyntheticMVDataset", "batch_iterator", "cycle_epochs", "prefetch_host",
+           "read_camera_matrix_single"]
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +157,82 @@ class GObjaverseVideoDataset:
             i += 1
             if i >= n:
                 return
+
+
+@dataclass
+class GObjaverseI2VDataset(GObjaverseVideoDataset):
+    """I2V variant (reference video_i2v_dataset.py): white-255 background,
+    empty captions, the view sequence rolled by a random azimuth drawn from
+    the dataset's own ``random.Random`` (video_i2v_dataset.py:196-198), the
+    supervision re-canonicalised against the new first view, and that view
+    as ``ref_frame``."""
+
+    background: int = 255
+    random_roll: bool = True
+
+    def _load_item(self, idx: int) -> Dict[str, np.ndarray]:
+        item = super()._load_item(idx)
+        item["caption"] = ""
+        if self.random_roll:
+            shift = self._rng.randrange(self.max_frames)
+            for k in ("video", "mask", "camera_data"):
+                item[k] = np.roll(item[k], -shift, axis=0)
+            if "gs_data" in item:
+                # the full-size targets roll with the views; the poses are
+                # canonicalised against the new first view
+                sup_i = np.roll(item["gs_data"]["images_output"], -shift, axis=0)
+                sup_m = np.roll(item["gs_data"]["masks_output"], -shift, axis=0)
+                item["gs_data"] = self.prepare_gs(item["camera_data"], sup_i, sup_m)
+        item["ref_frame"] = item["video"][0]
+        return item
+
+
+@dataclass
+class ImageListDataset:
+    """``path|||caption`` list files; each image bilinear-resized to
+    ``resolution`` (retried, zero-filled when it never opens) in frame 0 of
+    a zero video of ``max_frames`` frames (reference image_dataset.py:14-85)."""
+
+    data_list: Sequence[str]
+    data_dir_list: Sequence[str]
+    resolution: Tuple[int, int] = (256, 256)
+    max_frames: int = 1
+    retries: int = 5
+
+    def __post_init__(self):
+        self.items: List[Tuple[str, str]] = []
+        for lst, root in zip(self.data_list, self.data_dir_list):
+            if not os.path.exists(lst):
+                continue
+            with open(lst) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    parts = line.split("|||")
+                    self.items.append((os.path.join(root, parts[0]), parts[-1]))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __iter__(self):
+        from PIL import Image
+
+        w, h = self.resolution
+        for path, caption in self.items:
+            arr = None
+            for _ in range(self.retries):
+                try:
+                    img = Image.open(path).convert("RGB").resize(self.resolution, Image.BILINEAR)
+                    arr = np.asarray(img).astype(np.float32) / 255.0
+                    break
+                except (OSError, ValueError):  # unreadable or truncated: retry, then zeros
+                    continue
+            if arr is None:
+                arr = np.zeros((h, w, 3), np.float32)
+            video = np.zeros((self.max_frames, 3, h, w), np.float32)
+            video[0] = (arr * 2 - 1).transpose(2, 0, 1)
+            yield {"video": video, "caption": caption}
 
 
 @dataclass

@@ -42,7 +42,7 @@ from ..models import AutoencoderKL, CLIPTextTower, UNetSD_T2VBase
 from ..models.lgm import LGM, LGMOptions
 from ..ops.ply_io import save_ply
 from ..training.checkpoints import (
-    init_weights,
+    init_models,
     load_matched,
     load_torch_checkpoint,
     rename_clip_key,
@@ -137,8 +137,8 @@ class T2VPipeline:
         layers zeroed, as in the JAX package), then load the released
         checkpoints whose config paths exist."""
         t0 = time.time()
-        for i, m in enumerate(self.models.values()):
-            init_weights(m, self.seed + i, device=self.device)
+        init_models([(m, self.seed + i) for i, m in enumerate(self.models.values())],
+                    device=self.device)
         logger.info("param init took %.1fs", time.time() - t0)
         if load:
             self.load_weights()

@@ -135,6 +135,12 @@ class UNetSD_I2VGen(UNetSD_T2VBase):
         self.in_dim, self.concat_dim, self.num_tokens = in_dim, concat_dim, num_tokens
         # the input conv sees the latent and the concat plane
         self.input_blocks[0][0] = nn.Conv2d(in_dim + concat_dim, dim, 3, padding=1)
+        if not self.temporal_attention:
+            # the I2V middle block keeps its temporal transformer whatever
+            # temporal_attention says (JAX unet_i2v.py:249-254)
+            mid_ch = dim * self.dim_mult[-1]
+            self.middle_block.insert(2, self._block(in_dim, "temporal", "middle_block_2",
+                                                    mid_ch, mid_ch))
         self.local_image_concat = nn.Sequential(
             nn.Conv2d(in_dim, concat_dim * 4, 3, padding=1), nn.SiLU(),
             nn.Conv2d(concat_dim * 4, concat_dim * 4, 3, padding=1), nn.SiLU(),

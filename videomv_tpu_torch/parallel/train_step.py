@@ -4,7 +4,9 @@ Port of ``videomv_tpu/parallel/train_step.py`` (the reference train-loop
 core, train_t2v_enterance.py:237-323): draw t, the noise and the
 classifier-free drop; replace the dropped rows' text by the negative-prompt
 embedding ``zero_y``; the diffusion loss of the denoiser; backward; the
-optimizer; the EMA lerp. Against the JAX step:
+optimizer; the EMA lerp. The denoiser comes in through an apply function,
+so one step serves T2V (``make_t2v_apply``: text and camera) and I2V
+(``make_i2v_apply``: also the reference frame). Against the JAX step:
 
   jitted, donated step over a mesh    → an eager step on one device
   fp32 params, bf16 module dtype      → fp32 master parameters under bf16
@@ -30,7 +32,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-__all__ = ["TrainDraws", "TrainState", "build_train_step", "draw_train_randoms", "make_t2v_apply"]
+__all__ = ["TrainDraws", "TrainState", "build_train_step", "draw_train_randoms", "make_i2v_apply",
+           "make_t2v_apply"]
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]],
                    torch.Tensor]
@@ -78,6 +81,19 @@ def make_t2v_apply(unet: torch.nn.Module) -> ApplyFn:
     return apply_fn
 
 
+def make_i2v_apply(unet: torch.nn.Module) -> ApplyFn:
+    """I2V conditioning: the T2V conditioning plus the reference frame's
+    latent (``batch["local_image"]``) and its CLIP image embedding
+    (``batch["image_embed"]``); no fps is passed, so the UNet's default of 8
+    applies (train_i2v_enterance.py local_image path)."""
+
+    def apply_fn(xt, t, y, batch):
+        return unet(xt, t, y=y, camera_data=batch.get("camera_data"),
+                    local_image=batch["local_image"], image=batch.get("image_embed"))
+
+    return apply_fn
+
+
 @contextlib.contextmanager
 def _dropout_stream(generator: Optional[torch.Generator]):
     """Within ``with``, the default generator of ``generator``'s device runs
@@ -109,7 +125,9 @@ def build_train_step(apply_fn: ApplyFn, diffusion, ema_decay: float = 0.9999,
     loss alone.
 
     batch: ``latents`` [B, 4, F, h, w] (the frozen VAE's encode),
-    ``y_words`` [B, L, ctx], optional ``camera_data`` [B, F, 16]. ``zero_y``
+    ``y_words`` [B, L, ctx], optional ``camera_data`` [B, F, 16], and for
+    ``make_i2v_apply`` ``local_image`` [B, 4, 1, h, w] and ``image_embed``
+    [B, y_dim]. ``zero_y``
     [1, L, ctx] is the negative prompt's embedding that dropped rows take
     (reference ``zero_y_negative``, train_t2v_enterance.py:173-175,274), or
     zeros when None. ``autocast_dtype`` (bf16 on the card) runs the denoiser

@@ -6,12 +6,14 @@
 Takes the arguments of the JAX package's ``train_net.py`` plus ``--device``.
 It runs on the card: without a CUDA device it stops with an error, and
 ``--device cpu`` is the only way onto the CPU. ``--debug`` limits the run to
-3 steps at batch 1. The T2V finetunes are ported: the plain UNet finetune
-(``configs/t2v_train.yaml`` as shipped; ``configs/t2v_train_tiny.yaml`` at a
+3 steps at batch 1. Every shipped training config runs: the plain UNet
+finetune (``configs/t2v_train.yaml``; ``configs/t2v_train_tiny.yaml`` at a
 small size), the joint LAION finetune (``configs/t2v_train_laion.yaml``, image
-steps at f = 1 when its shards exist) and the LGM-refine finetune
-(``UNet.use_lgm_refine True``, or ``configs/lgm_refine_train_tiny.yaml``). I2V
-training (``train_i2v_entrance``) is refused: it is not ported yet.
+steps at f = 1 when its shards exist), the I2V UNet finetune
+(``configs/i2vgen_xl_train.yaml``, ``TASK_TYPE: train_i2v_entrance``) and the
+LGM-refine finetune behind either denoiser (``UNet.use_lgm_refine True``, or
+``configs/lgm_refine_train_tiny.yaml``). ``param_sharding: fsdp`` is refused:
+it needs several devices.
 """
 
 from __future__ import annotations

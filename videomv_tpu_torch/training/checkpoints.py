@@ -15,6 +15,10 @@ biases 0.1·n), and with ``zero_init=True`` zeroes the layers the JAX
 package zero-initialises (tagged by ``models.blocks.zero_module``), so a
 fresh UNet outputs exactly 0. ``zero_init=False`` gives the "seeded"
 weights the parity tests and the smoke test use, where every layer acts.
+The draw is the cost (one numpy stream per module, ≈ 1.4 G values for the
+UNet): it runs in a worker thread one parameter ahead of the scaling and the
+copy to the device, and ``init_models`` seeds several modules at once, each
+from its own stream; the values are those of one plain sequential pass.
 """
 
 from __future__ import annotations
@@ -22,13 +26,15 @@ from __future__ import annotations
 import logging
 import math
 import re
-from typing import Callable, Dict, Mapping, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 __all__ = [
+    "init_models",
     "init_weights",
     "load_matched",
     "load_torch_checkpoint",
@@ -243,21 +249,46 @@ def init_weights(module: nn.Module, seed: int, zero_init: bool = True,
     numpy ``default_rng(seed)``: weights of rank >= 2 ~ N(0, 1/fan_in) with
     fan_in = prod(shape[1:]); 1-D ``weight`` (norm scales) 1 + 0.1·N(0, 1);
     other 1-D tensors 0.1·N(0, 1). With ``zero_init``, the zero-init layers
-    get zeros. A module on the meta device is materialised on ``device``."""
+    get zeros (their draw is still taken from the stream). A module on the
+    meta device is materialised on ``device``.
+
+    numpy fills an array without holding the GIL, so a worker thread draws
+    parameter i + 1 while this thread scales parameter i in place (the same
+    float32 operations as ``n * s`` and ``1.0 + 0.1 * n``) and copies it."""
     if device is not None:
         module.to_empty(device=device)
     rng = np.random.default_rng(seed)
     zeros = _zero_init_names(module) if zero_init else set()
-    for name, p in module.named_parameters():
-        shape = tuple(p.shape)
-        n = rng.standard_normal(shape, dtype=np.float32)
-        if name in zeros:
-            val = np.zeros(shape, np.float32)
-        elif len(shape) >= 2:
-            val = n * np.float32(math.prod(shape[1:]) ** -0.5)
-        elif name.endswith("weight"):
-            val = 1.0 + 0.1 * n
-        else:
-            val = 0.1 * n
-        p.copy_(torch.from_numpy(val))
+    params = list(module.named_parameters())
+
+    def draw(i: int) -> np.ndarray:
+        return rng.standard_normal(tuple(params[i][1].shape), dtype=np.float32)
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ahead = pool.submit(draw, 0) if params else None
+        for i, (name, p) in enumerate(params):
+            n = ahead.result()
+            if i + 1 < len(params):
+                ahead = pool.submit(draw, i + 1)
+            if name in zeros:
+                n[...] = 0.0
+            elif n.ndim >= 2:
+                n *= np.float32(math.prod(n.shape[1:]) ** -0.5)
+            elif name.endswith("weight"):
+                n *= np.float32(0.1)
+                n += np.float32(1.0)
+            else:
+                n *= np.float32(0.1)
+            p.copy_(torch.from_numpy(n))
     return module
+
+
+def init_models(jobs: Sequence[Tuple[nn.Module, int]], zero_init: bool = True,
+                device: Optional[torch.device] = None) -> None:
+    """``init_weights`` of each ``(module, seed)`` in ``jobs``, all at once in
+    threads (each module's stream is its own, so the values are those of
+    seeding them one after another)."""
+    with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
+        futures = [pool.submit(init_weights, m, seed, zero_init, device) for m, seed in jobs]
+        for f in futures:
+            f.result()

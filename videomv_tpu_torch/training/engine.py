@@ -1,5 +1,5 @@
 """Training engine of the port on one device: the plain and joint-LAION
-UNet finetune, and the LGM-refine finetune.
+UNet finetune, the I2V UNet finetune, and the LGM-refine finetune.
 
 Port of ``videomv_tpu/training/engine.py::T2VTrainer``. One explicit
 ``device``, no mesh:
@@ -20,6 +20,15 @@ LAION ``img_dataset`` (configs/t2v_train_laion.yaml) every
 ``image_every``-th step is an image step at f = 1. ``viz_interval`` samples
 the validation prompts with the live (or EMA) UNet.
 
+I2V finetune (``TASK_TYPE: train_i2v_entrance`` or ``UNet.type:
+UNetSD_I2VGen``, configs/i2vgen_xl_train.yaml): ``UNetSD_I2VGen`` beside the
+joint text + visual tower; each step is also conditioned on view 0 of the
+batch, its VAE latent and its CLIP image embedding
+(``parallel.make_i2v_apply``); the data is ``GObjaverseI2VDataset``
+(white background, empty captions, a random azimuth roll), and
+``viz_interval`` samples from the current batch's conditioning
+(``i2v_viz``) instead of prompts.
+
 LGM-refine finetune (``use_lgm_refine True``; reference
 train_i2v_enterance.py:154-165): every tower except the LGM is frozen and
 the LGM is trained through re-rendered-view supervision
@@ -30,9 +39,10 @@ brings its own.
 Both run the frozen VAE encode and the text encode on the device before the
 step, with the video crossing host → device as uint8 (``wire_uint8``).
 ``prng_impl`` (the JAX package's dropout-stream generator) is read and
-ignored: the port's dropout draws from the step's generator. I2V training and ``param_sharding: fsdp`` are not ported and
-raise; ``dp_devices`` > 1 runs the whole batch on the one device, which is
-the JAX mesh's step, with a warning.
+ignored: the port's dropout draws from the step's generator.
+``param_sharding: fsdp`` is not ported and raises; ``dp_devices`` > 1 runs
+the whole batch on the one device, which is the JAX mesh's step, with a
+warning.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import torch.nn.functional as F
 from ..config import AttrDict
 from ..data.cameras import GSCameraSettings, prepare_gs_training
 from ..data.datasets import (
+    GObjaverseI2VDataset,
     GObjaverseVideoDataset,
     SyntheticMVDataset,
     batch_iterator,
@@ -59,14 +70,22 @@ from ..data.datasets import (
 )
 from ..data.laion import LaionImageDataset, expand_shard_spec
 from ..data.tokenizer import tokenize
-from ..diffusion import GaussianDiffusion
+from ..diffusion import GaussianDiffusion, ddim_sample_loop
 from ..inference.pipeline import T2VPipeline, unet_kwargs_from_cfg
-from ..models import AutoencoderKL, CLIPTextTower, UNetSD_T2VBase
+from ..models import (
+    AutoencoderKL,
+    CLIPTextTower,
+    OpenCLIPTextVisual,
+    UNetSD_I2VGen,
+    UNetSD_T2VBase,
+)
+from ..models.clip import VIT_MEAN, VIT_STD
 from ..models.lgm import LGM, LGMOptions
 from ..models.lpips import LPIPS
-from ..parallel import TrainState, build_train_step, make_t2v_apply
+from ..parallel import TrainState, build_train_step, make_i2v_apply, make_t2v_apply
+from ..utils.video_io import save_video_grid
 from .checkpoints import (
-    init_weights,
+    init_models,
     load_matched,
     load_torch_checkpoint,
     rename_lgm_key,
@@ -99,10 +118,8 @@ class T2VTrainer:
         d.pop("type", None)
         d.pop("ddim_timesteps", None)
         self.diffusion = GaussianDiffusion(**d)
-        if (cfg.get("TASK_TYPE", "") == "train_i2v_entrance"
-                or cfg.get("UNet", {}).get("type") == "UNetSD_I2VGen"):
-            raise NotImplementedError(
-                "I2V training is not ported yet: it is the I2V training slice of the port")
+        self.is_i2v = (cfg.get("TASK_TYPE", "") == "train_i2v_entrance"
+                       or cfg.get("UNet", {}).get("type") == "UNetSD_I2VGen")
         if str(cfg.get("param_sharding", "replicated")) == "fsdp":
             raise NotImplementedError(
                 "param_sharding: fsdp shards the state over several devices; it comes with "
@@ -121,12 +138,19 @@ class T2VTrainer:
         self.resolution = list(cfg.get("resolution", [256, 256]))
         self.scale_factor = float(cfg.get("scale_factor", 0.18215))
         with torch.device("meta"):
-            self.unet = UNetSD_T2VBase(**unet_kwargs_from_cfg(cfg.get("UNet", {})))
+            unet_cls = UNetSD_I2VGen if self.is_i2v else UNetSD_T2VBase
+            self.unet = unet_cls(**unet_kwargs_from_cfg(cfg.get("UNet", {})))
             self.vae = AutoencoderKL()
-            self.clip = CLIPTextTower()
+            # the I2V steps also encode view 0 through the visual tower
+            self.clip = OpenCLIPTextVisual() if self.is_i2v else CLIPTextTower()
+        # the denoiser as the steps call it: text + camera, and for I2V the
+        # reference frame
+        self.unet_apply = (make_i2v_apply if self.is_i2v else make_t2v_apply)(self.unet)
         self.lgm_state: Optional[LGMTrainState] = None
         self.state: Optional[TrainState] = None
-        self.lgm = None
+        self.lgm = self.lpips = None
+        if self.use_lgm_refine:
+            self._build_lgm(cfg)
         self.zero_y: Optional[torch.Tensor] = None
         self.resume_step = 0
 
@@ -140,9 +164,9 @@ class T2VTrainer:
         too (for smoke runs without checkpoints: with the zero output conv
         every upstream gradient of the UNet is 0)."""
         cfg = self.cfg
-        for name in ("unet", "vae", "clip"):
-            init_weights(getattr(self, name), _INIT_SEEDS[name], zero_init=zero_init,
-                         device=self.device)
+        names = ("unet", "vae", "clip") + (("lgm", "lpips") if self.use_lgm_refine else ())
+        init_models([(getattr(self, n), _INIT_SEEDS[n]) for n in names], zero_init=zero_init,
+                    device=self.device)
         ckpt = cfg.get("Pretrain", {}).get("resume_checkpoint")
         if ckpt and os.path.exists(ckpt):  # tolerant pretrain load
             report = load_matched(self.unet, load_torch_checkpoint(ckpt), rename_unet_key)
@@ -153,7 +177,7 @@ class T2VTrainer:
             if m:
                 self.resume_step = int(m.group(1))
         if self.use_lgm_refine:
-            self._init_lgm_refine(cfg, zero_init)
+            self._init_lgm_refine(cfg)
         else:
             self._init_unet_finetune(cfg)
         return self
@@ -194,16 +218,16 @@ class T2VTrainer:
         toks = torch.as_tensor(tokenize([str(cfg.get("negative_prompt", ""))]), dtype=torch.long,
                                device=self.device)
         with torch.no_grad():
-            self.zero_y = self.clip(toks)[1]
+            self.zero_y = self.clip.encode_text(toks)[1]
         self.train_step = build_train_step(
-            make_t2v_apply(self.unet), self.diffusion,
+            self.unet_apply, self.diffusion,
             ema_decay=float(cfg.get("ema_decay", 0.9999)), use_ema=use_ema,
             p_zero=float(cfg.get("p_zero", 0.1)), zero_y=self.zero_y,
             autocast_dtype=torch.bfloat16 if self.dtype == torch.bfloat16 else None)
 
-    def _init_lgm_refine(self, cfg: AttrDict, zero_init: bool):
-        """The LGM is the only optimised module; UNet, VAE, CLIP and LPIPS
-        ride along frozen."""
+    def _build_lgm(self, cfg: AttrDict):
+        """The LGM of ``lgm_opts`` (a preset name or LGMOptions fields) and
+        LPIPS, on the meta device until ``init``."""
         preset = cfg.get("lgm_opts", "big")
         if isinstance(preset, str):
             opts = getattr(LGMOptions, preset)()
@@ -215,12 +239,15 @@ class T2VTrainer:
         # from output_size 512 up
         big_render = int(opts.output_size) >= 512
         lgm_remat = bool(cfg.get("lgm_use_checkpoint", big_render))
-        view_chunk = int(cfg.get("refine_view_chunk", 2 if big_render else 0))
+        self._view_chunk = int(cfg.get("refine_view_chunk", 2 if big_render else 0))
         with torch.device("meta"):
             self.lgm = LGM(opts, use_checkpoint=lgm_remat)
             self.lpips = LPIPS()
-        init_weights(self.lgm, _INIT_SEEDS["lgm"], zero_init=zero_init, device=self.device)
-        init_weights(self.lpips, _INIT_SEEDS["lpips"], zero_init=zero_init, device=self.device)
+
+    def _init_lgm_refine(self, cfg: AttrDict):
+        """The LGM is the only optimised module; UNet, VAE, CLIP and LPIPS
+        ride along frozen."""
+        opts = self.lgm.opt
         lp = cfg.get("lgm_pretrain")
         if lp and os.path.exists(lp):
             rep = load_matched(self.lgm, load_torch_checkpoint(lp), rename_lgm_key)
@@ -259,16 +286,17 @@ class T2VTrainer:
             ray_size=int(opts.input_size), znear=float(opts.znear), zfar=float(opts.zfar),
             splat_backend=str(cfg.get("splat_backend", "auto")), lpips=self.lpips,
             lambda_lpips=float(cfg.get("lambda_lpips", opts.lambda_lpips)),
-            view_chunk=view_chunk,
+            view_chunk=self._view_chunk,
             autocast_dtype=torch.bfloat16 if self.dtype == torch.bfloat16 else None)
-        self.refine_step = build_lgm_refine_step(self.unet, self.vae, self.lgm, self.diffusion,
-                                                 **self._step_kwargs)
+        self.refine_step = build_lgm_refine_step(self.unet_apply, self.vae, self.lgm,
+                                                 self.diffusion, **self._step_kwargs)
 
     # -------------------------------------------------------------- data
 
     def make_dataset(self):
-        """G-Objaverse renders when a ``vid_dataset.data_list`` exists and
-        lists objects, else the procedural ``SyntheticMVDataset``."""
+        """G-Objaverse renders (``GObjaverseI2VDataset`` for I2V) when a
+        ``vid_dataset.data_list`` exists and lists objects, else the
+        procedural ``SyntheticMVDataset``."""
         vd = self.cfg.get("vid_dataset", {})
         if any(os.path.exists(p) for p in vd.get("data_list", [])):
             extra = {}
@@ -279,7 +307,8 @@ class T2VTrainer:
                 extra["gs_settings"] = GSCameraSettings(
                     fovy=float(o.fovy), znear=float(o.znear), zfar=float(o.zfar),
                     input_size=int(o.input_size), output_size=int(o.output_size))
-            ds = GObjaverseVideoDataset(
+            ds_cls = GObjaverseI2VDataset if self.is_i2v else GObjaverseVideoDataset
+            ds = ds_cls(
                 data_list=vd.get("data_list", []), data_dir_list=vd.get("data_dir_list", []),
                 caption_dir=vd.get("caption_dir"),
                 resolution=tuple(vd.get("resolution", self.resolution)),
@@ -319,8 +348,15 @@ class T2VTrainer:
         """Host batch → device features: the frozen VAE encode of every
         frame and the CLIP text sequence. The video crosses host→device as
         uint8 (4× fewer bytes; sources are 8-bit images) and is normalised
-        back to [-1, 1] on the device; ``wire_uint8: false`` keeps fp32."""
+        back to [-1, 1] on the device; ``wire_uint8: false`` keeps fp32.
+
+        I2V adds the reference frame (train_i2v_enterance.py:236-238): its
+        latent ``local_image = latents[:, :, :1]``, and ``image_embed``, the
+        visual tower's embedding of view 0 of the host's float video mapped
+        to [0, 1], resized to 224² (bilinear, antialiased when it shrinks, as
+        ``jax.image.resize``) and normalised by ``VIT_MEAN`` / ``VIT_STD``."""
         video = np.asarray(batch["video"])
+        ref = video[:, 0] if self.is_i2v else None  # [B, 3, H, W], before the uint8 wire
         if bool(self.cfg.get("wire_uint8", True)) and video.dtype != np.uint8:
             video = np.clip((video + 1.0) * 127.5 + 0.5, 0.0, 255.0).astype(np.uint8)
         video = self._to_device(video)
@@ -330,9 +366,18 @@ class T2VTrainer:
         z = self.vae.encode_first_stage(video.reshape(b * f, c, hh, ww), self.scale_factor)
         z = z.float().reshape(b, f, 4, *z.shape[-2:]).permute(0, 2, 1, 3, 4).contiguous()
         toks = self._to_device(np.asarray(tokenize(list(batch["caption"])), np.int64))
-        out = {"latents": z, "y_words": self.clip(toks)[1]}
+        out = {"latents": z, "y_words": self.clip.encode_text(toks)[1]}
         if "camera_data" in batch:
             out["camera_data"] = self._to_device(np.asarray(batch["camera_data"]))
+        if self.is_i2v:
+            out["local_image"] = z[:, :, :1]
+            x = (self._to_device(np.asarray(ref, np.float32)) * 0.5 + 0.5).clamp(0.0, 1.0)
+            x = F.interpolate(x, size=(224, 224), mode="bilinear", antialias=True,
+                              align_corners=False)
+            mean = torch.as_tensor(VIT_MEAN, device=self.device).reshape(1, 3, 1, 1)
+            std = torch.as_tensor(VIT_STD, device=self.device).reshape(1, 3, 1, 1)
+            out["image_embed"] = self.clip.encode_image(
+                ((x - mean) / std).to(self.clip.visual.conv1.weight.dtype))
         return out
 
     @torch.no_grad()
@@ -413,8 +458,9 @@ class T2VTrainer:
         log_dir = cfg.get("log_dir", "workspace/experiment")
         os.makedirs(log_dir, exist_ok=True)
         viz_interval = int(cfg.get("viz_interval", 0))
+        # I2V samples from the batch's own conditioning (i2v_viz) instead
         viz_hook = (self.make_viz_hook(log_dir)
-                    if viz_interval and not self.use_lgm_refine else None)
+                    if viz_interval and not self.use_lgm_refine and not self.is_i2v else None)
         try:
             return self._train_loop(num_steps, batches, image_batches, image_every, viz_hook,
                                     log_dir)
@@ -452,9 +498,13 @@ class T2VTrainer:
                                 float(aux["loss_lpips"]))
                 logger.info("step %d loss %.4f (%.2f it/s)%s", step, lv,
                             (i + 1) / (time.time() - t_start), " image" if use_image else "")
-            if viz_hook is not None and viz_interval and step % viz_interval == 0:
+            if (viz_interval and step % viz_interval == 0 and not self.use_lgm_refine
+                    and (self.is_i2v or viz_hook is not None)):
                 with self._ema_weights():
-                    viz_hook(step, self.unet)
+                    if self.is_i2v:
+                        self.i2v_viz(step, feats, list(host_batch.get("caption", [])), log_dir)
+                    else:
+                        viz_hook(step, self.unet)
             if save_interval and step % save_interval == 0 and step > 0:
                 self.save(os.path.join(log_dir, "checkpoints"))
         return float(losses[-1])
@@ -478,6 +528,76 @@ class T2VTrainer:
             yield
         finally:
             swap()
+
+    @torch.no_grad()
+    def sample_i2v_viz(self, noise: torch.Tensor, feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The I2V visualisation's sampler: DDIM over ``ddim_timesteps``
+        (default 50) steps, eta 0, CFG at ``visual_train.guide_scale``
+        (default 6.0) from ``noise`` [b, 4, F, h, w], conditioned on the first
+        b rows of ``feats``. The uncond row swaps only the text for ``zero_y``;
+        the image conditioning stays (reference visual_train_it2v_video.py).
+        The UNet runs as it is (the caller sets its mode), under bf16
+        autocast when the trainer computes in bf16. Returns float32 latents."""
+        b = noise.shape[0]
+        y, cam = feats["y_words"][:b], feats["camera_data"][:b]
+        local, img = feats["local_image"][:b], feats["image_embed"][:b]
+        y2 = torch.cat([y, self.zero_y.to(y.dtype).expand_as(y)])
+        cond = dict(camera_data=torch.cat([cam, cam]), local_image=torch.cat([local, local]),
+                    image=torch.cat([img, img]))
+        autocast = (torch.autocast(device_type=noise.device.type, dtype=self.dtype)
+                    if self.dtype != torch.float32 else contextlib.nullcontext())
+
+        def cfg_model(xt, t):
+            with autocast:
+                out = self.unet(torch.cat([xt, xt]), torch.cat([t, t]), y=y2, **cond)
+            return out[:b].float(), out[b:].float()
+
+        return ddim_sample_loop(
+            self.diffusion, cfg_model, noise, eta=0.0,
+            ddim_timesteps=int(self.cfg.get("ddim_timesteps", 50)),
+            guide_scale=float(self.cfg.get("visual_train", {}).get("guide_scale", 6.0)))
+
+    def i2v_viz(self, step: int, feats: Dict[str, torch.Tensor], captions,
+                log_dir: str) -> Optional[str]:
+        """Batch-conditioned I2V visualisation (reference
+        train_i2v_enterance.py:301-327, visual_train_it2v_video.py:36-123):
+        ``sample_i2v_viz`` of the first ``viz_num`` (default 1) rows of the
+        current batch from noise of a generator seeded ``seed + step``, in
+        eval mode over the UNet's present weights (the loop swaps the EMA
+        weights in), decoded by the VAE and written by ``save_video_grid`` as
+        ``<log_dir>/viz/viz_step_XXXXXXXX.mp4``. Returns the written path.
+        Like the JAX trainer it never raises into the loop: a failure is
+        logged as ``i2v viz failed`` and None returned."""
+        was_training = self.unet.training
+        try:
+            lat = feats["latents"][:min(int(self.cfg.get("viz_num", 1)),
+                                        feats["latents"].shape[0])]
+            gen = torch.Generator(device=lat.device).manual_seed(
+                int(self.cfg.get("seed", 0)) + step)
+            noise = torch.randn(lat.shape, generator=gen, device=lat.device)
+            self.unet.eval()
+            frames = self._decode_viz(self.sample_i2v_viz(noise, feats))
+            path = save_video_grid(
+                os.path.join(log_dir, "viz", f"viz_step_{step:08d}.mp4"), list(frames),
+                (list(captions) or [""] * len(frames))[:len(frames)])
+            logger.info("wrote i2v visualization %s", path)
+            return path
+        except Exception as e:  # noqa: BLE001 - visualisation never stops training
+            logger.warning("i2v viz failed: %s", e)
+            return None
+        finally:
+            self.unet.train(was_training)
+
+    @torch.no_grad()
+    def _decode_viz(self, latents: torch.Tensor) -> np.ndarray:
+        """Latents [b, 4, F, h, w] → uint8 views [b, F, H, W, 3] through the
+        frozen VAE, truncated to uint8 as the JAX visualisation does (the
+        pipeline's ``_decode_latents`` rounds)."""
+        b, c, f, h, w = latents.shape
+        z = latents.permute(0, 2, 1, 3, 4).reshape(b * f, c, h, w) / self.scale_factor
+        img = (self.vae.decode(z) * 0.5 + 0.5).clamp(0.0, 1.0)
+        img = img.reshape(b, f, 3, *img.shape[-2:]).permute(0, 1, 3, 4, 2)
+        return (img * 255).to(torch.uint8).cpu().numpy()
 
     def make_viz_hook(self, log_dir: str) -> Optional[VisualTrainHook]:
         """In-training DDIM visualisation (reference visual_train hook,

@@ -84,7 +84,7 @@ def draw_refine_randoms(generator: torch.Generator, latents: torch.Tensor, diffu
 
 
 def build_lgm_refine_step(
-    unet,
+    unet_apply_fn,
     vae,
     lgm,
     diffusion,
@@ -103,13 +103,16 @@ def build_lgm_refine_step(
     autocast_dtype: Optional[torch.dtype] = None,
 ):
     """Create ``refine_step(state, batch, generator=None, draws=None) ->
-    (loss, aux)``, one LGM-finetune step. ``refine_step.loss_fn(batch,
+    (loss, aux)``, one LGM-finetune step. The frozen denoiser is called as
+    ``unet_apply_fn(xt, t, y, batch)`` (``parallel.make_t2v_apply`` or
+    ``make_i2v_apply``, as in the JAX step). ``refine_step.loss_fn(batch,
     draws)`` is its loss alone, the composition of ``refine_step.prepare``
     (the frozen, gradient-free part) and ``refine_step.loss_from`` (LGM →
     render → losses).
 
     batch: ``latents [B, 4, F, h, w]``, ``y_words``, optional
-    ``camera_data [B, F, 16]``, and the supervision block: ``images_gt
+    ``camera_data [B, F, 16]``, what ``unet_apply_fn`` reads besides (the
+    I2V reference frame), and the supervision block: ``images_gt
     [B, F, 3, R, R]`` in [0, 1] (or uint8, converted on the device so the
     host→device wire stays 4× thinner), ``masks_gt [B, F, 1, R, R]`` (same
     rule), plus either host-prepared ``gs_rays [B, F, 6, S, S]`` with
@@ -144,8 +147,7 @@ def build_lgm_refine_step(
             devices = [dev] if dev.type == "cuda" else []
             with torch.random.fork_rng(devices=devices):
                 torch.manual_seed(draws.dropout_seed)  # the UNet's dropout masks
-                eps = unet(xt, draws.t, y=batch["y_words"],
-                           camera_data=batch.get("camera_data"))
+                eps = unet_apply_fn(xt, draws.t, batch["y_words"], batch)
             fake_x0 = diffusion.pred_to_x0(eps, xt, draws.t)
 
             if "gs_rays" in batch:
