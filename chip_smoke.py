@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (videomv_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, one card, ~8-10 minutes
+    python3 chip_smoke.py            # every phase, one card, ~10 minutes
 
 Phases (each prints its lines; a failed phase exits non-zero):
   1. environment: torch/CUDA versions, device, power limit, optional deps;
@@ -89,7 +89,24 @@ Phases (each prints its lines; a failed phase exits non-zero):
      the training CLI at the shipped batch of 8 with its peak memory; then
      the LGM-refine finetune behind the frozen I2V UNet (UNet.use_lgm_refine
      True, batch 1): 3 steps with asserted launch counts by shape (kernels 1,
-     3 and 4) and the LGM gradient bf16 with the kernels vs fp32 plain.
+     3 and 4) and the LGM gradient bf16 with the kernels vs fp32 plain;
+ 12. dist_train: configs/t2v_train.yaml's UNet finetune at full width, batch
+     2, one step on a fixed batch and fixed draws: plain (no process group),
+     then under torch.distributed at world size 1 on NCCL, replicated (the
+     data-parallel step; loss bit-equal) and FSDP-sharded, each held to the
+     plain step's loss and gradient with kernel 1's twenty launches by shape
+     and its peak memory, then one AdamW step of the sharded state;
+ 13. batched_serving: generate_batch(force_batched=True) of two prompts at
+     the shipped T2V geometry, plain and refined, each row against a
+     single-prompt request fed its noise row (first CFG forward, final
+     latents), kernels 1, 2 and 3 by shape, the batch's wall against the two
+     requests' (not a claim);
+ 14. multirank: two ranks on the one card. NCCL refuses two ranks on one
+     device (its message is printed); over gloo with CUDA tensors a
+     frame-parallel plain T2V request (sp = 2, MULTIRANK_STEPS DDIM steps)
+     against one rank, and one data-parallel finetune step at global batch 2
+     against dist_train's loss; the ranks take their weights from files the
+     phase writes (it needs dist_train in the same run).
 Every model is seeded through one cache of draws (``_SeededWeights``): each
 (module layout, seed) is drawn once on the host by the program's
 ``init_weights``, and the later phases' trainers and CLIs copy it.
@@ -236,8 +253,68 @@ TRAIN_OPTS = ["UNet.use_lgm_refine", "True", "save_ckp_interval", "0",
 UNET_TRAIN_STEPS, UNET_TRAIN_BATCH, UNET_TRAIN_VIEWS = 3, 2, 24
 
 
+# slice E. dist_train: one step of configs/t2v_train.yaml at batch 2 (48 rows)
+# plain, then replicated and FSDP-sharded at world size 1 on NCCL: the loss of
+# FSDP within DIST_LOSS_RTOL of the plain step's (bf16 autocast; the
+# replicated one bit-equal), the gradients within the cosine and norm ratio
+# above. batched_serving: generate_batch(force_batched=True) of two prompts at
+# the shipped geometry, each row against its single request (UNET_TOL on the
+# first CFG forward, SERVE_LATENT_RL2 on the final latents; PERF.md §2).
+# multirank: two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+# device): a frame-parallel plain request of MULTIRANK_STEPS DDIM steps at sp =
+# 2 against one rank, and one data-parallel step at global batch 2 against
+# dist_train's loss; the ranks read their weights from files written here.
+DIST_TRAIN_BATCH = 2
+DIST_LOSS_RTOL = 1e-2
+# multirank holds each rank's all-reduced gradient to the plain step's by
+# its norm and by the cosine of every GRAD_SAMPLE_STRIDE-th entry (1.4 M of
+# the UNet's 1.4 B; a prime stride, so no tensor's layout aligns with it)
+GRAD_SAMPLE_STRIDE = 997
+UNET_TOL, SERVE_LATENT_RL2 = 5e-2, 0.5
+MULTIRANK_STEPS = 10
+MULTIRANK_DEADLINE_S = 420
+MULTIRANK_DIR = os.path.join(ROOT, "workspace", "chip_smoke_multirank")
+MULTIRANK_TRAIN = os.path.join(MULTIRANK_DIR, "train.pt")
+MULTIRANK_SERVE = os.path.join(MULTIRANK_DIR, "serve.pt")
+MULTIRANK_NCCL_RDV = os.path.join(MULTIRANK_DIR, "rendezvous_nccl")
+MULTIRANK_GLOO_RDV = os.path.join(MULTIRANK_DIR, "rendezvous_gloo")
+
+
 def unet_train_attn_shapes(rows):
     return {(rows, 1024, 5, 64): 10, (rows, 256, 10, 64): 10}
+
+
+def _doubled(shapes):
+    """Launches by shape of the same path at twice the rows."""
+    return {(2 * s[0],) + tuple(s[1:]): c for s, c in shapes.items()}
+
+
+# slice E's launches by shape, which the kernels phase also checks and times:
+# the batched program of BATCH_PROMPTS prompts launches what one request
+# does, each launch over twice the rows (kernel 3 over twice the views);
+# rank 0 of the frame-parallel request runs its 12 frames of both CFG rows;
+# the DDP and FSDP steps at batch 2 take the unet_train shapes at 48 rows
+BATCH_PROMPTS = 2
+BATCHED_PLAIN_BY_SHAPE = {k: _doubled(v) for k, v in PLAIN_BY_SHAPE.items()}
+BATCHED_REFINED_BY_SHAPE = {"flash_attention": _doubled(ATTN_SHAPES),
+                            "geglu_ffn": _doubled(FFN_SHAPES)}
+MULTIRANK_BY_SHAPE = {
+    "flash_attention": {(24, 1024, 5, 64): 5 * MULTIRANK_STEPS,
+                        (24, 256, 10, 64): 5 * MULTIRANK_STEPS},
+    "geglu_ffn": {(24576, 320, 1280): 10 * MULTIRANK_STEPS,
+                  (6144, 640, 2560): 10 * MULTIRANK_STEPS,
+                  (24576, 512, 2048): MULTIRANK_STEPS}}
+DIST_TRAIN_BY_SHAPE = {"flash_attention": unet_train_attn_shapes(DIST_TRAIN_BATCH * UNET_TRAIN_VIEWS)}
+
+
+def _slice_e_calls(name, shape):
+    """Kernel ``name``'s launches at ``shape`` on each slice-E path."""
+    shape = tuple(shape)
+    return dict(calls_per_batched_plain_request=BATCHED_PLAIN_BY_SHAPE.get(name, {}).get(shape, 0),
+                calls_per_batched_refined_request=BATCHED_REFINED_BY_SHAPE.get(name, {}).get(
+                    shape, 0),
+                calls_per_rank_request=MULTIRANK_BY_SHAPE.get(name, {}).get(shape, 0),
+                calls_per_dist_train_step=DIST_TRAIN_BY_SHAPE.get(name, {}).get(shape, 0))
 
 
 UNET_TRAIN_LAUNCHES = {"flash_attention": 20, "geglu_ffn": 0, "splat_composite": 0,
@@ -331,7 +408,7 @@ SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
 # kernel 4's two variants: the same report
 SPLAT_BWD_KERNELS = ("splat_composite_bwd_culled_kernel", "splat_composite_bwd_kernel")
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train",
-          "unet_train", "i2v_train")
+          "unet_train", "i2v_train", "dist_train", "batched_serving", "multirank")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
@@ -684,21 +761,23 @@ def _splat_variants(torch, payload, ts, tc, nts, kern, phase, what):
 
 def _splat_kernel_checks(torch, dev):
     """Kernel 3 against its twin and against the per-tile kernel on one
-    24-view render call (both payloads) and on one view chunk of the train
-    step, the binned render of one view against the dense oracle, and kernel
-    4 against its twin on the same two calls. Returns the forward's and the
-    backward's runs."""
+    24-view render call (both payloads), on the batched refine's call over
+    BATCH_PROMPTS x 24 views and on one view chunk of the train step, the
+    binned render of one view against the dense oracle, and kernel 4 against
+    its twin on the 24-view and the train step's calls. Returns the
+    forward's and the backward's runs."""
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops import gaussian_splat as tgs
     from videomv_tpu_torch.ops import splat
 
-    g, cv, cvp, tan = _synthetic_scene(torch, dev)
     cap = tgs.pair_capacity(SPLAT_GAUSSIANS, SPLAT_SIZE)
     nts = SPLAT_SIZE // splat.TILE
-    prep = {k: v[:, None] for k, v in tgs.prepare_gaussians(g).items()}
-    proj = [p[0] for p in tgs.project_prepared(prep, cv, cvp, SPLAT_SIZE, tan)]
     runs = []
-    for packed in (True, False):
+    for packed, views in ((True, SPLAT_VIEWS), (False, SPLAT_VIEWS),
+                          (True, BATCH_PROMPTS * SPLAT_VIEWS)):
+        g, cv, cvp, tan = _synthetic_scene(torch, dev, views=views)
+        prep = {k: v[:, None] for k, v in tgs.prepare_gaussians(g).items()}
+        proj = [p[0] for p in tgs.project_prepared(prep, cv, cvp, SPLAT_SIZE, tan)]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -712,7 +791,7 @@ def _splat_kernel_checks(torch, dev):
         if max(pairs) > cap:
             fail("kernels", f"synthetic scene overflows the capacity {cap}: {pairs}")
         rows = payload.shape[1]
-        what = f"{rows}-row payload, {SPLAT_VIEWS} views at {SPLAT_SIZE}²"
+        what = f"{rows}-row payload, {views} views at {SPLAT_SIZE}²"
         st = _splat_stats(torch, payload, ts, tc, nts)
         _say_splat_stats("kernels", what, st)
         ops.reset_launch_counts()
@@ -726,10 +805,13 @@ def _splat_kernel_checks(torch, dev):
                                    lambda: splat.composite(payload, ts, tc, nts), iters=3)
         ok = err <= SPLAT_TOL
         alive = st["alive_points"]
-        bound_ms, bound_by, walk_ms = _splat_bound(SPLAT_VIEWS, rows, cap, nts * nts, sum(pairs),
-                                                   alive)
-        runs.append(dict(shape=[SPLAT_VIEWS, rows, cap], calls_per_request=3 if packed else 0,
-                         calls_per_train_step=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms, bound_by, walk_ms = _splat_bound(views, rows, cap, nts * nts, sum(pairs), alive)
+        single = packed and views == SPLAT_VIEWS
+        runs.append(dict(shape=[views, rows, cap], calls_per_request=3 if single else 0,
+                         calls_per_train_step=0,
+                         **dict(_slice_e_calls("splat_composite", ()),
+                                calls_per_batched_refined_request=3 if views > SPLAT_VIEWS else 0),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                          share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms,
                          live_pairs=[min(pairs), sum(pairs) // len(pairs), max(pairs)],
@@ -748,8 +830,9 @@ def _splat_kernel_checks(torch, dev):
         if not packed:
             bwd_runs = [_splat_bwd_check(torch, payload, ts, tc, kern, nts, sum(pairs), alive,
                                          f"{SPLAT_VIEWS} views at {SPLAT_SIZE}²", 0)]
-        del payload, ts, tc, kern, twin
+        del payload, ts, tc, kern, twin, proj, prep
     # the binned render (kernel, fp32 payload) against the dense oracle, view 0
+    g, cv, cvp, tan = _synthetic_scene(torch, dev)
     bg = torch.tensor([0.3, 0.5, 0.7], device=dev)
     binned = splat.rasterize_binned_batch(g, cv[:, :1], cvp[:, :1], SPLAT_SIZE, tan, bg,
                                           max_pairs=cap)
@@ -769,7 +852,7 @@ def _splat_kernel_checks(torch, dev):
     if not ok:
         fail("kernels", "binned render outside its bound of the dense oracle")
     runs[0].update(dense_max_abs_err=err, dense_share_above_tol=frac)
-    del g, cv, cvp, proj, prep, binned, dense
+    del g, cv, cvp, binned, dense
 
     # one view chunk of the train step: TRAIN_VIEW_CHUNK views at 512², the
     # 16-row payload, forward and backward (pairs beyond the capacity, the
@@ -794,7 +877,8 @@ def _splat_kernel_checks(torch, dev):
     bound_ms, bound_by, walk_ms = _splat_bound(views, 16, cap, nts * nts, live, alive)
     ok = err <= SPLAT_TOL
     runs.append(dict(shape=[views, 16, cap], calls_per_request=0,
-                     calls_per_train_step=TRAIN_LAUNCHES["splat_composite"], max_abs_err=err,
+                     calls_per_train_step=TRAIN_LAUNCHES["splat_composite"],
+                     **_slice_e_calls("splat_composite", ()), max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=None, share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms,
                      live_pairs=[live // views], alive_points=alive,
@@ -888,6 +972,7 @@ def _splat_bwd_check(torch, payload, ts, tc, saved, nts, live_pairs, alive_point
     if not ok:
         fail("kernels", f"splat composite backward ({what}) outside its error bound")
     return dict(shape=[R, rows, cap], calls_per_request=0, calls_per_train_step=calls_per_step,
+                **_slice_e_calls("splat_composite_bwd", ()),
                 max_abs_err=err, rel_err=err / scale, per_tile_rel_err=old_err / scale, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 share_of_bound=bound_ms / ms, segment_walk_ms=walk_ms, live_pairs=live_pairs,
@@ -995,7 +1080,8 @@ def _spatial_kernel_checks(torch, dev):
         ok = k_err <= 2 * m_err + KERNEL_EPS and o_err <= 2 * m_err + KERNEL_EPS and same
         bound_ms, bound_by = _spatial_bound(r, s, c, kv_len, cc, iff)
         runs.append(dict(shape=[r, s, c, kv_len], calls_per_request=calls,
-                         calls_per_train_step=0, max_abs_err=k_err, module_err_vs_twin=m_err,
+                         calls_per_train_step=0, **_slice_e_calls("fused_spatial", ()),
+                         max_abs_err=k_err, module_err_vs_twin=m_err,
                          ms=ms, plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None, variant=fs.VARIANT_NAMES[served],
                          share_of_bound=bound_ms / ms, other_variant_ms=other_ms,
@@ -1177,9 +1263,12 @@ def phase_kernels(torch, only=None):
 
     import torch.nn.functional as F
 
-    # the served shapes, then the unet_train phase's own
-    train_only = {s: 0 for rows in UNET_TRAIN_CHECK_ROWS for s in unet_train_attn_shapes(rows)}
-    for shape in ({**ATTN_SHAPES, **train_only} if chosen("flash_attention") else ()):
+    # the served shapes, then the unet_train phase's own and the batched
+    # program's (twice a request's rows)
+    attn_shapes = dict.fromkeys([
+        *ATTN_SHAPES, *(s for rows in UNET_TRAIN_CHECK_ROWS for s in unet_train_attn_shapes(rows)),
+        *BATCHED_REFINED_BY_SHAPE["flash_attention"]])
+    for shape in (attn_shapes if chosen("flash_attention") else ()):
         q, k, v = (randn(*shape) for _ in range(3))
         ops.reset_launch_counts()
         kern = flash_attention(q, k, v)
@@ -1209,7 +1298,8 @@ def phase_kernels(torch, only=None):
         bound_ms, bound_by = _attn_bound(shape)
         results["flash_attention"].append(dict(
             shape=list(shape), calls_per_request=ATTN_SHAPES.get(shape, 0),
-            calls_per_train_step=TRAIN_ATTN_SHAPES.get(shape, 0), err_vs_fp32=k_err,
+            calls_per_train_step=TRAIN_ATTN_SHAPES.get(shape, 0),
+            **_slice_e_calls("flash_attention", shape), err_vs_fp32=k_err,
             twin_err_vs_fp32=t_err, max_abs_err=kt, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
             variant=fa.VARIANT_NAMES[served], share_of_bound=bound_ms / ms,
@@ -1243,7 +1333,8 @@ def phase_kernels(torch, only=None):
             fail("kernels", f"flash_attention backward {shape} differs from its twin's")
         del q, k, v, go, got, want
 
-    for t, c, inner in (FFN_SHAPES if chosen("geglu_ffn") else ()):
+    ffn_shapes = dict.fromkeys([*FFN_SHAPES, *BATCHED_REFINED_BY_SHAPE["geglu_ffn"]])
+    for t, c, inner in (ffn_shapes if chosen("geglu_ffn") else ()):
         x = randn(t, c)
         w1 = randn(2 * inner, c, scale=c ** -0.5)
         w2 = randn(c, inner, scale=inner ** -0.5)
@@ -1269,8 +1360,9 @@ def phase_kernels(torch, only=None):
                                variant=ff.VARIANT_MMA + ff.VARIANT_WGMMA - served), iters=10)
         bound_ms, bound_by = _ffn_bound(t, c, inner)
         results["geglu_ffn"].append(dict(
-            shape=[t, c, inner], calls_per_request=FFN_SHAPES[(t, c, inner)],
-            calls_per_train_step=0, err_vs_fp32=k_err, twin_err_vs_fp32=t_err,
+            shape=[t, c, inner], calls_per_request=FFN_SHAPES.get((t, c, inner), 0),
+            calls_per_train_step=0, **_slice_e_calls("geglu_ffn", (t, c, inner)),
+            err_vs_fp32=k_err, twin_err_vs_fp32=t_err,
             max_abs_err=kt, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, variant=ff.VARIANT_NAMES[served], share_of_bound=bound_ms / ms,
             other_variant_ms=other_ms, served_variant_ms_in_turns=served_ms))
@@ -1322,6 +1414,8 @@ def main(argv=None):
     unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
+    if "multirank" in phases and "dist_train" not in phases:
+        p.error("multirank takes the dist_train phase's UNet, batch and loss: add dist_train")
 
     sys.path.insert(0, ROOT)
     import torch
@@ -1366,9 +1460,12 @@ def main(argv=None):
     unet_train_run = f"UNet train run of {UNET_TRAIN_STEPS} steps"
     i2v_train_run = f"I2V UNet train run of {I2V_TRAIN_STEPS} steps"
     i2v_refine_run = f"I2V refine train run of {I2V_TRAIN_STEPS} steps"
+    slice_e = ("DDP train step (world 1)", "FSDP train step (world 1)",
+               "batched plain request (2 prompts)", "batched refined request (2 prompts)",
+               f"frame-parallel plain request, {MULTIRANK_STEPS} steps (rank 0 of 2)")
     by_path = {"plain request": {}, "refined request": {}, "I2V plain request": {},
                "I2V refined request": {}, train_run: {}, unet_train_run: {},
-               i2v_train_run: {}, i2v_refine_run: {}}
+               i2v_train_run: {}, i2v_refine_run: {}, **{k: {} for k in slice_e}}
     if "unet" in phases:
         phase_unet(torch)
     if "refine" in phases:
@@ -1387,6 +1484,18 @@ def main(argv=None):
         by_path[i2v_train_run], by_path[i2v_refine_run] = phase_i2v_train(torch)
     if "unet_train_memory" in phases:
         phase_unet_train_memory(torch)
+    if "dist_train" in phases:
+        t0 = time.time()
+        by_path[slice_e[0]], by_path[slice_e[1]] = phase_dist_train(torch)
+        say("dist_train", f"phase {time.time() - t0:.1f}s")
+    if "batched_serving" in phases:
+        t0 = time.time()
+        by_path[slice_e[2]], by_path[slice_e[3]] = phase_batched_serving(torch)
+        say("batched_serving", f"phase {time.time() - t0:.1f}s")
+    if "multirank" in phases:
+        t0 = time.time()
+        by_path[slice_e[4]] = phase_multirank(torch)
+        say("multirank", f"phase {time.time() - t0:.1f}s")
     say("env", f"seeded weights: {seeded.drawn_s:.1f} s drawing on the host (each model once, "
         f"summed over the threads that draw at once), {seeded.copied_s:.1f} s copying them "
         f"onto their devices; the whole run {time.time() - run_t0:.1f} s; {CLOCKS_QUERY}: "
@@ -3437,6 +3546,493 @@ def phase_unet_train_memory(torch):
         torch.cuda.empty_cache()
         say("unet_train_memory", f"configs/t2v_train_laion.yaml, one step at f = {frames}, "
             f"batch {batch} ({frames * batch} UNet rows): {out}")
+
+# ---------------------------------------------------------------- slice E
+
+
+def _flat_grad(torch, unet):
+    """Every UNet gradient as one fp32 vector (an FSDP shard gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    return torch.cat([(p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad)
+                      .float().flatten() for p in unet.parameters()])
+
+
+class _GradCapture:
+    """An optimizer that takes no step: ``step()`` keeps the gradient the
+    optimizer would have used (after the step's all-reduce), or with
+    ``keep=False`` its norm and every GRAD_SAMPLE_STRIDE-th entry alone (on
+    the host)."""
+
+    def __init__(self, torch, unet, keep=True):
+        self.torch, self.unet, self.keep = torch, unet, keep
+        self.flat = self.norm = self.sample = None
+
+    def zero_grad(self):
+        for p in self.unet.parameters():
+            p.grad = None
+
+    def step(self):
+        flat = _flat_grad(self.torch, self.unet)
+        self.norm = float(flat.norm())
+        self.sample = flat[::GRAD_SAMPLE_STRIDE].cpu()
+        self.flat = flat if self.keep else None
+
+
+def _grad_agreement(torch, got, ref):
+    """(cosine, norm ratio) of two flattened gradients."""
+    cos = (torch.dot(got, ref) / (got.norm() * ref.norm())).item()
+    return cos, (got.norm() / ref.norm()).item()
+
+
+def phase_dist_train(torch):
+    """configs/t2v_train.yaml's UNet finetune at full width, batch 2, one step
+    on a fixed batch and fixed draws: plain (no process group), then under
+    torch.distributed at world size 1 on NCCL, replicated (the data-parallel
+    step) and with the UNet's blocks FSDP-sharded, then one AdamW step of the
+    sharded state. Each step's loss and gradient are held to the plain
+    step's (the replicated loss bit-equal), its kernel 1 launches to twenty by
+    shape, its peak memory printed. Writes the UNet, the batch and the draws
+    for the multirank phase. Returns the launch counts of the two steps."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.data.datasets import SyntheticMVDataset, batch_iterator
+    from videomv_tpu_torch.parallel import (
+        TrainState,
+        apply_fsdp,
+        build_train_step,
+        draw_train_randoms,
+        init_distributed,
+        make_mesh,
+    )
+    from videomv_tpu_torch.training.engine import T2VTrainer
+    from videomv_tpu_torch.training.optim import build_optimizer
+
+    global _PIPE, _HOST_UNET
+    _PIPE = _HOST_UNET = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.chdir(ROOT)
+    if dist.is_initialized():
+        fail("dist_train", "a process group exists before the phase")
+    t0 = time.time()
+    cfg = load_config("configs/t2v_train.yaml", opts=UNET_TRAIN_OPTS)
+    trainer = T2VTrainer(cfg, device="cuda").init(zero_init=False)
+    unet, dev = trainer.unet, trainer.device
+    if trainer.mesh is not None or unet.dim != 320 or trainer.max_frames != UNET_TRAIN_VIEWS:
+        fail("dist_train", "configs/t2v_train.yaml no longer builds the one-device UNet finetune")
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames),
+                               DIST_TRAIN_BATCH))
+    feats = trainer.encode_batch(host)
+    p_zero = float(cfg.get("p_zero", 0.1))
+    draws = draw_train_randoms(torch.Generator(device=dev).manual_seed(5), feats["latents"],
+                               trainer.diffusion, p_zero)
+    for m in unet.modules():  # the steps are compared: no dropout masks
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    rows = DIST_TRAIN_BATCH * UNET_TRAIN_VIEWS
+    want_shapes = {"geglu_ffn": {}, "fused_spatial": {}, **DIST_TRAIN_BY_SHAPE}
+    say("dist_train", f"T2VTrainer of configs/t2v_train.yaml (UNet "
+        f"{sum(p.numel() for p in unet.parameters()) / 1e9:.3f} B parameters, fp32 under bf16 "
+        f"autocast, block checkpointing) at batch {DIST_TRAIN_BATCH} ({rows} rows); init "
+        f"{time.time() - t0:.1f}s")
+
+    def step(mode, step_fn, capture):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        loss = step_fn(TrainState(0, unet, capture), feats, draws=draws)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say("dist_train", f"{mode}: loss {loss.item():.9f}, {dt:.3f} s (host clock, "
+            f"synchronised), peak {peak:.2f} GiB, launches {counts}, attention by shape "
+            f"{shapes['flash_attention']}")
+        if counts != UNET_TRAIN_LAUNCHES or shapes != want_shapes:
+            fail("dist_train", f"{mode}: expected launches {UNET_TRAIN_LAUNCHES} by shape "
+                 f"{want_shapes}, got {counts} / {shapes}")
+        return loss.item(), counts
+
+    def build(mesh=None):
+        return build_train_step(trainer.unet_apply, trainer.diffusion, use_ema=False,
+                                p_zero=p_zero, zero_y=trainer.zero_y,
+                                autocast_dtype=torch.bfloat16, mesh=mesh)
+
+    plain_cap = _GradCapture(torch, unet)
+    loss_plain, _ = step("plain step (no process group)", build(), plain_cap)
+    g_plain = plain_cap.flat
+    # the multirank phase's ranks take this UNet, batch and draws from a file
+    os.makedirs(MULTIRANK_DIR, exist_ok=True)
+    t1 = time.time()
+    torch.save({"unet": {k: v.detach().cpu() for k, v in unet.state_dict().items()},
+                "feats": {k: v.cpu() for k, v in feats.items()},
+                "draws": [draws.t.cpu(), draws.noise.cpu(), draws.drop.cpu()],
+                "zero_y": trainer.zero_y.cpu(), "loss": loss_plain, "grad_norm": plain_cap.norm,
+                "grad_sample": plain_cap.sample, "p_zero": p_zero}, MULTIRANK_TRAIN)
+    say("dist_train", f"wrote the UNet, batch and draws for the multirank phase "
+        f"({os.path.getsize(MULTIRANK_TRAIN) / 2**30:.2f} GiB) in {time.time() - t1:.1f}s")
+
+    rdv = os.path.join(MULTIRANK_DIR, "rendezvous_world1")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    init_distributed(torch.device("cuda", 0), f"file://{rdv}", 0, 1)
+    try:
+        say("dist_train", f"process group: {dist.get_backend()} world {dist.get_world_size()}")
+        mesh = make_mesh(device_type="cuda")
+        cap = _GradCapture(torch, unet)
+        loss_dp, counts_dp = step("replicated (data-parallel) step, world 1", build(mesh), cap)
+        cos, ratio = _grad_agreement(torch, cap.flat, g_plain)
+        say("dist_train", f"replicated vs plain: loss {loss_dp!r} vs {loss_plain!r} "
+            f"(bit-equal {loss_dp == loss_plain}), gradient cosine {cos:.6f}, norm ratio "
+            f"{ratio:.6f}")
+        if loss_dp != loss_plain:
+            fail("dist_train", "the replicated step's loss is not the plain step's")
+        if not (cos >= TRAIN_GRAD_MIN_COS
+                and TRAIN_GRAD_NORM_RATIO[0] <= ratio <= TRAIN_GRAD_NORM_RATIO[1]):
+            fail("dist_train", "the replicated step's gradient disagrees with the plain one")
+        cap.flat = None
+
+        trainer.state.optimizer = None  # the one-device AdamW's moments are not the sharded ones
+        gc.collect()
+        torch.cuda.empty_cache()
+        units = apply_fsdp(unet.fsdp_units(), mesh)
+        sharded = sum(isinstance(p, DTensor) for p in unet.parameters())
+        cap = _GradCapture(torch, unet)
+        loss_fsdp, counts_fsdp = step(f"FSDP step ({units} units, {sharded} sharded tensors), "
+                                      "world 1", build(mesh), cap)
+        cos, ratio = _grad_agreement(torch, cap.flat, g_plain)
+        rel = abs(loss_fsdp - loss_plain) / abs(loss_plain)
+        say("dist_train", f"FSDP vs plain: loss {loss_fsdp!r} vs {loss_plain!r} (|d|/|ref| "
+            f"{rel:.2e}, bound {DIST_LOSS_RTOL}), gradient cosine {cos:.6f}, norm ratio "
+            f"{ratio:.6f}")
+        if not (rel <= DIST_LOSS_RTOL and cos >= TRAIN_GRAD_MIN_COS
+                and TRAIN_GRAD_NORM_RATIO[0] <= ratio <= TRAIN_GRAD_NORM_RATIO[1]):
+            fail("dist_train", "the FSDP step disagrees with the plain one")
+        del cap, g_plain
+        opt = build_optimizer(unet.named_parameters(), lr=3e-5, warmup_steps=0)
+        probe = next(p for p in unet.parameters() if isinstance(p, DTensor))
+        before = probe.to_local().clone()
+        torch.cuda.reset_peak_memory_stats()
+        loss = build(mesh)(TrainState(0, unet, opt), feats, draws=draws)
+        torch.cuda.synchronize()
+        moved = not torch.equal(before, probe.to_local())
+        say("dist_train", f"one AdamW step of the sharded state: loss {loss.item():.6f}, a sharded "
+            f"parameter moved {moved}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not (moved and math.isfinite(loss.item())):
+            fail("dist_train", "the sharded AdamW step did not move the parameters")
+    finally:
+        dist.destroy_process_group()
+    del trainer, unet, feats, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts_dp, counts_fsdp
+
+
+class _FirstForward:
+    """Keeps the output of the UNet's first forward after ``arm()``."""
+
+    def __init__(self, unet):
+        self.out = None
+        self.armed = False
+        self.handle = unet.register_forward_hook(self._hook)
+
+    def arm(self):
+        self.out, self.armed = None, True
+
+    def _hook(self, module, args, out):
+        if self.armed:
+            self.out, self.armed = out.detach().float().clone(), False
+
+
+def _rel_max(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _rel_l2(got, ref):
+    return float((got - ref).norm() / ref.norm())
+
+
+def phase_batched_serving(torch):
+    """configs/t2v_infer.yaml as shipped, generate_batch(force_batched=True)
+    of two prompts (one batched program: CFG rows [2 cond; 2 uncond]),
+    plain and refined ``shared``, each row held against a single-prompt
+    request fed the same noise row (the first CFG forward and the final
+    latents), launches asserted by shape, the batch's wall against the two
+    requests'. Returns the batched requests' launch counts."""
+    from videomv_tpu_torch import ops
+
+    pipe = _pipeline(torch)
+    with open(pipe.cfg.test_list_path) as fh:
+        prompts = [ln.strip() + ", 3d asset" for ln in fh if ln.strip()][:BATCH_PROMPTS]
+    y = pipe.encode_text(prompts)
+    zero = pipe._negative()
+    noise = pipe._noise(BATCH_PROMPTS, seed=21)
+    first = _FirstForward(pipe.unet)
+    out_counts = {}
+    try:
+        for refine in (False, True):
+            tag = "refined (shared)" if refine else "plain"
+            want = REFINED_LAUNCHES if refine else PLAIN_LAUNCHES
+            batch_shapes = BATCHED_REFINED_BY_SHAPE if refine else BATCHED_PLAIN_BY_SHAPE
+            singles, walls = [], []
+            for i in range(BATCH_PROMPTS):
+                first.arm()
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pipe.generate(prompts[i], steps=50, guide_scale=9.0, use_gs_refine=refine,
+                                    y_words=y[i:i + 1], negative_words=zero,
+                                    noise=noise[i:i + 1])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if ops.launch_counts() != want:
+                    fail("batched_serving", f"{tag} request {i}: launches {ops.launch_counts()}")
+                singles.append((first.out, torch.from_numpy(out["latents"])))
+            first.arm()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = pipe.generate_batch(prompts, steps=50, guide_scale=9.0, use_gs_refine=refine,
+                                      y_words=y, negative_words=zero, noise=noise,
+                                      force_batched=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out_counts[refine] = counts
+            # as many launches as one request, each over twice the rows
+            if counts != want or shapes != dict(batch_shapes, fused_spatial={}):
+                fail("batched_serving", f"{tag} batch: expected {want} by shape {batch_shapes}, "
+                     f"got {counts} / {shapes}")
+            fr = out["frames"]
+            if fr.dtype.name != "uint8" or fr.shape != (BATCH_PROMPTS, 24, 256, 256, 3):
+                fail("batched_serving", f"frames {fr.dtype} {fr.shape}")
+            lat = torch.from_numpy(out["latents"])
+            errs = []
+            for i, (fwd, lat1) in enumerate(singles):
+                rows = first.out[[i, BATCH_PROMPTS + i]]  # row i's cond and uncond
+                errs.append((_rel_max(rows, fwd), _rel_l2(lat[i:i + 1], lat1)))
+            say("batched_serving", f"{tag}, 2 prompts, 50 steps: one batched request "
+                f"{wall:.3f} s (peak {peak:.2f} GiB) against two requests {walls[0]:.3f} + "
+                f"{walls[1]:.3f} = {sum(walls):.3f} s (host clock, synchronised; not a claim); "
+                f"launches {counts}; per row, first CFG forward max|d|/max|ref| and final "
+                f"latents relative L2 against its single request: {errs} (bounds "
+                f"{UNET_TOL}, {SERVE_LATENT_RL2})")
+            if not all(a <= UNET_TOL and b <= SERVE_LATENT_RL2 for a, b in errs):
+                fail("batched_serving", f"{tag}: a row disagrees with its single request")
+    finally:
+        first.handle.remove()
+    return out_counts[False], out_counts[True]
+
+
+def _nccl_two_ranks(rank, n):
+    """Both ranks on cuda:0 ask NCCL for a communicator; returns its error."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    group = dist.new_group(backend="nccl")
+    try:
+        dist.all_reduce(torch.ones(1, device="cuda:0"), group=group)
+        torch.cuda.synchronize()
+        return "no error: NCCL took two ranks on one device"
+    except Exception as e:  # noqa: BLE001 - the probe reports the refusal
+        return f"{type(e).__name__}: {e}"
+
+
+def _multirank_rank(rank, n, steps, serve_path, train_path):
+    """One of two ranks on cuda:0 over gloo: a frame-parallel plain T2V
+    request (sp = 2) of configs/t2v_infer.yaml at ``steps`` DDIM steps, then
+    one data-parallel finetune step of the dist_train UNet at global batch 2
+    (a row each). Returns this rank's numbers."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.config import load_config, load_inference_config
+    from videomv_tpu_torch.diffusion import GaussianDiffusion
+    from videomv_tpu_torch.inference import T2VPipeline
+    from videomv_tpu_torch.models import UNetSD_T2VBase
+    from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
+    from videomv_tpu_torch.parallel import (
+        TrainDraws,
+        TrainState,
+        build_train_step,
+        make_mesh,
+        make_t2v_apply,
+        shard_batch,
+    )
+
+    os.chdir(ROOT)
+    torch.cuda.set_device(0)
+    out = {}
+    served = torch.load(serve_path, map_location="cpu", mmap=True, weights_only=True)
+    pipe = T2VPipeline(load_inference_config("configs/t2v_infer.yaml"), device="cuda:0")
+    pipe.load_state_dicts(unet=served["unet"], vae=served["vae"])
+    first = _FirstForward(pipe.unet)
+    first.arm()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = pipe.generate("x", steps=steps, guide_scale=9.0, frame_parallel=True,
+                      y_words=served["y"].cuda(), negative_words=served["zero_y"].cuda(),
+                      noise=served["noise"].cuda())
+    torch.cuda.synchronize()
+    out["request_s"] = time.perf_counter() - t0
+    out["launches"], out["counts"] = ops.launch_counts_by_shape(), ops.launch_counts()
+    out["latents"] = r["latents"]
+    out["first"] = first.out.cpu().numpy()
+    out["frames"] = r["frames"].shape
+    first.handle.remove()
+    del pipe, served, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = torch.load(train_path, map_location="cpu", mmap=True, weights_only=True)
+    cfg = load_config("configs/t2v_train.yaml")
+    with torch.device("meta"):
+        unet = UNetSD_T2VBase(**unet_kwargs_from_cfg(cfg.UNet))
+    unet.to_empty(device="cuda:0")
+    unet.load_state_dict(state["unet"])
+    unet.float().train()
+    for m in unet.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    d = dict(cfg.Diffusion)
+    d.pop("type", None)
+    d.pop("ddim_timesteps", None)
+    mesh = make_mesh(device_type="cuda")
+    step = build_train_step(make_t2v_apply(unet), GaussianDiffusion(**d), use_ema=False,
+                            p_zero=state["p_zero"], zero_y=state["zero_y"].cuda(),
+                            autocast_dtype=torch.bfloat16, mesh=mesh)
+    feats = shard_batch(mesh, {k: v.cuda() for k, v in state["feats"].items()})
+    draws = TrainDraws(*(x.cuda() for x in state["draws"]))
+    cap = _GradCapture(torch, unet, keep=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = step(TrainState(0, unet, cap), feats, draws=draws)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    # numpy: a CPU tensor would travel to the parent as a shared-memory handle
+    # that dies with this process
+    out["loss"], out["grad_norm"], out["grad_sample"] = loss.item(), cap.norm, cap.sample.numpy()
+    out["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase_multirank(torch):
+    """Two ranks on the one card: NCCL's answer to two ranks on one device,
+    then gloo with CUDA tensors: a frame-parallel plain T2V request at sp = 2
+    against the same request on one rank, and one data-parallel finetune
+    step at global batch 2 against dist_train's loss. Returns rank 0's
+    launch counts of the request."""
+    import numpy as np
+
+    from videomv_tpu_torch.parallel import spawn
+
+    pipe = _pipeline(torch)
+    t0 = time.time()
+    for f in (MULTIRANK_NCCL_RDV, MULTIRANK_GLOO_RDV):
+        if os.path.exists(f):
+            os.remove(f)
+    try:
+        answer = spawn(_nccl_two_ranks, 2, init_file=MULTIRANK_NCCL_RDV,
+                       deadline_s=90)[0]
+    except TimeoutError as e:  # a hang is an answer too: the ranks were killed
+        answer = f"no answer: {e}"
+    say("multirank", f"NCCL, two ranks on cuda:0 ({time.time() - t0:.1f}s): rank 0 "
+        f"{answer[:400]!r}")
+    if not os.path.exists(MULTIRANK_TRAIN):
+        fail("multirank", "needs the dist_train phase's file (--phases ...,dist_train,multirank)")
+    if not pipe.max_frames % 2 == 0:
+        fail("multirank", f"{pipe.max_frames} frames do not split over 2 ranks")
+    y = pipe.encode_text(["a wooden chair, 3d asset"])
+    zero = pipe._negative()
+    noise = pipe._noise(1, seed=23)
+    t0 = time.time()
+    torch.save({"unet": pipe.unet.state_dict(), "vae": pipe.vae.state_dict(), "y": y.cpu(),
+                "zero_y": zero.cpu(), "noise": noise.cpu()}, MULTIRANK_SERVE)
+    say("multirank", f"wrote the served weights for the ranks in {time.time() - t0:.1f}s")
+    first = _FirstForward(pipe.unet)
+    first.arm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = pipe.generate("x", steps=MULTIRANK_STEPS, guide_scale=9.0, y_words=y,
+                        negative_words=zero, noise=noise)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    ref_first = first.out.cpu()
+    first.handle.remove()
+    t0 = time.time()
+    res = spawn(_multirank_rank, 2, init_file=MULTIRANK_GLOO_RDV,
+                deadline_s=MULTIRANK_DEADLINE_S,
+                args=(MULTIRANK_STEPS, MULTIRANK_SERVE, MULTIRANK_TRAIN))
+    spawn_s = time.time() - t0
+    lat_ref = torch.from_numpy(ref["latents"])
+    f_local = pipe.max_frames // 2
+    errs = []
+    for r, o in enumerate(res):
+        block = ref_first[:, :, r * f_local:(r + 1) * f_local]
+        errs.append((_rel_max(torch.from_numpy(o["first"]), block),
+                     _rel_l2(torch.from_numpy(o["latents"]), lat_ref)))
+    same = np.array_equal(res[0]["latents"], res[1]["latents"])
+    want = MULTIRANK_BY_SHAPE
+    got = {k: v for k, v in res[0]["launches"].items()}
+    say("multirank", f"gloo, two ranks on cuda:0 (spawned and finished in {spawn_s:.1f}s): "
+        f"frame-parallel plain request, sp 2, {MULTIRANK_STEPS} steps: "
+        f"{[round(o['request_s'], 3) for o in res]} s per rank against {one_s:.3f} s on one "
+        f"rank (not a claim); frames {res[0]['frames']}; both ranks' latents equal {same}; per "
+        f"rank, the first CFG forward of its frames max|d|/max|ref| and the latents relative L2 "
+        f"against one rank {errs} (bounds {UNET_TOL}, {SERVE_LATENT_RL2}); rank 0 launches by "
+        f"shape {got}")
+    if not same or not all(a <= UNET_TOL and b <= SERVE_LATENT_RL2 for a, b in errs):
+        fail("multirank", "the frame-parallel request disagrees with one rank")
+    if {k: v for k, v in got.items() if v} != {k: v for k, v in want.items() if v}:
+        fail("multirank", f"expected rank 0's launches by shape {want}, got {got}")
+    plain = torch.load(MULTIRANK_TRAIN, map_location="cpu", mmap=True, weights_only=True)
+    ref_loss = plain["loss"]
+    rel = abs(res[0]["loss"] - ref_loss) / abs(ref_loss)
+    # the gradient each rank's optimizer would take (after the all-reduce)
+    # against the plain step's on the whole batch: its norm, and the cosine
+    # of every GRAD_SAMPLE_STRIDE-th entry
+    agree = [_grad_agreement(torch, torch.from_numpy(o["grad_sample"]).double(),
+                             plain["grad_sample"].double()) for o in res]
+    ratios = [o["grad_norm"] / plain["grad_norm"] for o in res]
+    grads_equal = (res[0]["grad_norm"] == res[1]["grad_norm"]
+                   and np.array_equal(res[0]["grad_sample"], res[1]["grad_sample"]))
+    say("multirank", f"data-parallel finetune step, global batch 2 (a row a rank): loss "
+        f"{res[0]['loss']:.9f} / {res[1]['loss']:.9f} against dist_train's {ref_loss:.9f} "
+        f"(|d|/|ref| {rel:.2e}, bound {DIST_LOSS_RTOL}); gradient norm per rank "
+        f"{[o['grad_norm'] for o in res]} against the plain step's {plain['grad_norm']:.6f} "
+        f"(ratios {ratios}, bounds {TRAIN_GRAD_NORM_RATIO}); cosine of every "
+        f"{GRAD_SAMPLE_STRIDE}th entry ({plain['grad_sample'].numel()}) against the plain "
+        f"step's {[a[0] for a in agree]} (bound {TRAIN_GRAD_MIN_COS}); both ranks' gradients "
+        f"equal {grads_equal}; step {[round(o['step_s'], 3) for o in res]} s, peak "
+        f"{[round(o['step_peak_gib'], 2) for o in res]} GiB per rank; the collectives ran on CUDA "
+        f"tensors over gloo, none staged through host memory by the port")
+    if res[0]["loss"] != res[1]["loss"] or rel > DIST_LOSS_RTOL:
+        fail("multirank", "the data-parallel step's loss disagrees with dist_train's")
+    if not (grads_equal and all(a[0] >= TRAIN_GRAD_MIN_COS for a in agree)
+            and all(TRAIN_GRAD_NORM_RATIO[0] <= x <= TRAIN_GRAD_NORM_RATIO[1] for x in ratios)):
+        fail("multirank", "the data-parallel step's all-reduced gradient disagrees with the "
+             "plain step's")
+    del plain
+    for f in (MULTIRANK_SERVE, MULTIRANK_TRAIN):
+        os.remove(f)
+    return res[0]["counts"]
+
 
 if __name__ == "__main__":
     main()

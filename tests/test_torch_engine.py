@@ -123,12 +123,14 @@ def test_gs_features_wire(small_towers, tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """``param_sharding: fsdp`` is not ported and raises; the I2V trainer
-    (either switch) builds on the CPU (the plain UNet finetune,
-    ``use_lgm_refine False``, too: see the tests below)."""
+    """``param_sharding: fsdp`` in one process (no process group) has
+    nothing to shard and builds, as do ``dp_devices: 2`` there (the world
+    of one is used) and the I2V trainer (either switch) on the CPU (the
+    plain UNet finetune, ``use_lgm_refine False``, too: see the tests
+    below). The multi-rank placements are ``test_torch_parallel_train.py``'s."""
     cfg = load_config(TINY_CFG, opts=["param_sharding", "fsdp"])
-    with pytest.raises(NotImplementedError, match="slice E"):
-        engine.T2VTrainer(cfg, device="cpu")
+    tr = engine.T2VTrainer(cfg, device="cpu")
+    assert not tr.fsdp and tr.mesh is None and int(cfg.dp_devices) == 2
     for opts in (["TASK_TYPE", "train_i2v_entrance"], ["UNet.type", "UNetSD_I2VGen"]):
         tr = engine.T2VTrainer(load_config(TINY_CFG, opts=opts), device="cpu")
         assert tr.is_i2v and type(tr.unet).__name__ == "UNetSD_I2VGen"

@@ -27,7 +27,9 @@ IMPORTS = (
     "videomv_tpu_torch.parallel.train_step", "videomv_tpu_torch.training.hooks",
     "videomv_tpu_torch.data.laion", "videomv_tpu_torch.data.native_loader",
     "videomv_tpu_torch.utils.video_io", "videomv_tpu_torch.utils.seed",
-    "videomv_tpu_torch.data.recenter",
+    "videomv_tpu_torch.data.recenter", "videomv_tpu_torch.parallel.mesh",
+    "videomv_tpu_torch.parallel.collectives", "videomv_tpu_torch.parallel.infer",
+    "videomv_tpu_torch.parallel.tp", "videomv_tpu_torch.parallel.dryrun",
 )
 
 

@@ -1,8 +1,15 @@
-"""CLI entry of the port: text or image → multiview generation on one device.
+"""CLI entry of the port: text or image → multiview generation.
 
     python -m videomv_tpu_torch.inference --cfg configs/t2v_infer.yaml \
         [--debug] [--seed N] [--device cuda] [k v ...]
     python -m videomv_tpu_torch.inference --cfg configs/i2vgen_xl_infer.yaml --debug
+    torchrun --nproc-per-node N -m videomv_tpu_torch.inference --cfg ... frame_parallel True
+
+Under ``torchrun`` each process drives ``cuda:LOCAL_RANK`` (NCCL; gloo with
+``--device cpu``): with ``frame_parallel: true`` in the config each sample's
+frames are spread over the processes (``serving_tp: N`` also splits the
+attention heads N ways), as the JAX package's ``inference.py`` reads them;
+without it every process serves the whole sample. Rank 0 writes.
 
 Takes the arguments of the JAX package's ``inference.py`` plus ``--device``.
 It runs on the card: without a CUDA device it stops with an error, and
@@ -41,19 +48,22 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None) -> List[str]:
-    """Run the CLI; returns the paths it wrote."""
+    """Run the CLI; returns the paths it wrote (rank 0 writes; the other
+    ranks of a process group return none)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(levelname)s: %(message)s")
 
     import torch
 
     from ..config import load_inference_config
+    from ..parallel.mesh import init_distributed, local_device
     from ..utils.device import resolve_device
     from ..utils.video_io import save_multiview_video
     from .i2v import I2VPipeline
     from .pipeline import T2VPipeline
 
-    device = resolve_device(args.device)
+    device = local_device(str(resolve_device(args.device)))
+    rank = init_distributed(device)
     cfg = load_inference_config(args.cfg_file, opts=args.opts or [])
     if args.seed is not None:
         cfg.seed = args.seed
@@ -86,12 +96,21 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     use_refine = bool(cfg.get("UNet", {}).get("use_lgm_refine", False))
     rounds = 1 if args.debug else int(cfg.get("round", 1))
     steps = int(cfg.get("ddim_timesteps", 50))
+    fp = bool(cfg.get("frame_parallel", False))
     written = []
 
     def run(item, seed, refine):
         if is_i2v:
-            return pipe.generate_from_image(item, steps=steps, use_gs_refine=refine, seed=seed)
-        return pipe.generate(item, steps=steps, use_gs_refine=refine, seed=seed)
+            return pipe.generate_from_image(item, steps=steps, use_gs_refine=refine, seed=seed,
+                                            frame_parallel=fp)
+        return pipe.generate(item, steps=steps, use_gs_refine=refine, seed=seed,
+                             frame_parallel=fp)
+
+    def save(path, frames, caption, t0):
+        """Rank 0 writes (every rank sampled)."""
+        if rank == 0:
+            written.append(save_multiview_video(path, frames, caption=caption))
+            logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
 
     for r in range(rounds):
         for idx, item in enumerate(items):
@@ -102,15 +121,12 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
             stem = os.path.join(log_dir, f"{idx:04d}_{cap_name}_{seed}")
             t0 = time.time()
             out = run(item, seed, refine=False)
-            written.append(save_multiview_video(stem + ".mp4", out["frames"], caption=name))
-            logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
+            save(stem + ".mp4", out["frames"], name, t0)
             if use_refine:
                 t0 = time.time()
                 out_gs = run(item, seed, refine=True)
-                written.append(save_multiview_video(stem + "_gs.mp4", out_gs["frames"],
-                                                    caption=name))
-                logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
-                if bool(cfg.get("save_ply", False)) and not is_i2v:
+                save(stem + "_gs.mp4", out_gs["frames"], name, t0)
+                if bool(cfg.get("save_ply", False)) and not is_i2v and rank == 0:
                     pipe.export_ply(out_gs["frames"], stem + ".ply")
                     written.append(stem + ".ply")
                     logging.info("saved %s", written[-1])

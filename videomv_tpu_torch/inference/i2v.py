@@ -1,7 +1,8 @@
 """Image→multiview inference pipeline (the I2VGen-XL variant) on PyTorch.
 
-Port of ``videomv_tpu/inference/i2v.py::I2VPipeline`` without the
-multi-device serving paths (reference inference_i2vgen_entrance.py:65-349):
+Port of ``videomv_tpu/inference/i2v.py::I2VPipeline`` (reference
+inference_i2vgen_entrance.py:65-349), frame-parallel serving included (the
+T2V pipeline's ``frame_parallel``):
 an RGBA input composited on white, the CLIP global image embedding and the
 VAE latent of the reference frame as conditioning, an empty text prompt, a
 zero image feature for the unconditional CFG row (``use_zero_infer``),
@@ -104,12 +105,14 @@ class I2VPipeline(T2VPipeline):
     def sample_i2v(self, noise: torch.Tensor, y: torch.Tensor, zero_y: torch.Tensor,
                    cam: torch.Tensor, local: torch.Tensor, img_emb: torch.Tensor,
                    zero_img: torch.Tensor, steps: int, guide_scale: float,
-                   gs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
-                   ) -> torch.Tensor:
+                   gs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                   view_mesh=None) -> torch.Tensor:
         """DDIM with CFG from ``noise`` [B, 4, F, h, w]: latents, float32. The
         CFG rows are ``[cond; uncond]``: ``y2 = [y; zero_y]``, the reference
         latent twice, ``image = [img_emb; zero_img]``. ``gs`` = (rays,
-        cam_view, cam_view_proj) turns the Gaussian-splat refine on."""
+        cam_view, cam_view_proj) turns the Gaussian-splat refine on;
+        ``view_mesh`` is the frame-parallel mesh whose rank's frames
+        ``noise`` and ``cam`` hold (``make_refine_fn``)."""
         b = noise.shape[0]
         unet = self.unet
 
@@ -131,7 +134,8 @@ class I2VPipeline(T2VPipeline):
                 batch=b, gs_settings=self.gs_settings, y=y, zero_y=zero_y, cam=cam,
                 gs_rays=rays, cam_view=cam_view, cam_view_proj=cam_view_proj,
                 uncond_mode=str(self.cfg.get("gs_refine_uncond", "full")),
-                view_idxs=tuple(self.cfg.get("gs_refine_views", REFINE_VIEW_IDXS)))
+                view_idxs=tuple(self.cfg.get("gs_refine_views", REFINE_VIEW_IDXS)),
+                view_mesh=view_mesh)
         return ddim_sample_loop(
             self.diffusion, cfg_model, noise, ddim_timesteps=steps, guide_scale=guide_scale,
             refine_fn=refine_fn,
@@ -149,11 +153,15 @@ class I2VPipeline(T2VPipeline):
         seed: Optional[int] = None,
         elevation: float = 15.0,
         camera_distance: float = 2.0,
+        frame_parallel: bool = False,
+        noise: Optional[torch.Tensor] = None,
     ) -> Dict[str, np.ndarray]:
         """One image → ``max_frames`` orbit views: frames uint8 [F, H, W, 3]
         and latents [1, 4, F, h, w]. The text prompt is empty; the negative
         prompt's encoding is cached. Deterministic in ``seed`` (noise from a
-        ``torch.Generator`` on the device)."""
+        ``torch.Generator`` on the device); ``noise`` replaces it.
+        ``frame_parallel`` spreads the sample's frames over the ranks, as
+        ``T2VPipeline.generate`` does."""
         cfg = self.cfg
         guide_scale = guide_scale if guide_scale is not None else float(cfg.get("guide_scale", 6.0))
         seed = seed if seed is not None else int(cfg.get("seed", 0))
@@ -167,10 +175,17 @@ class I2VPipeline(T2VPipeline):
         local = self.encode_local_latent(rgb)
 
         cam, *gs = self._get_cameras(elevation, camera_distance)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        h, w = self.latent_hw
-        noise = torch.randn((1, 4, self.max_frames, h, w), generator=gen, device=self.device)
-        latents = self.sample_i2v(noise, y_words, negative_words, cam, local, y_visual, zero_img,
-                                  steps, guide_scale, gs=tuple(gs) if use_gs_refine else None)
-        frames = self._decode_latents(latents)
+        gs = tuple(gs) if use_gs_refine else None
+        if noise is None:
+            noise = self._noise(1, seed)
+        mesh = self._serving_mesh() if frame_parallel else None
+        if mesh is None:
+            self._whole_unet("generate_from_image(frame_parallel=False)")
+            latents = self.sample_i2v(noise, y_words, negative_words, cam, local, y_visual,
+                                      zero_img, steps, guide_scale, gs=gs)
+            frames = self._decode_latents(latents)
+        else:
+            latents, frames = self._frame_parallel(mesh, noise, cam, lambda nz, cm: self.sample_i2v(
+                nz, y_words, negative_words, cm, local, y_visual, zero_img, steps, guide_scale,
+                gs=gs, view_mesh=mesh if gs else None))
         return {"frames": frames[0].cpu().numpy(), "latents": latents.cpu().numpy()}

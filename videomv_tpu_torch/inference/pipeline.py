@@ -1,12 +1,30 @@
 """Text→multiview inference pipeline on PyTorch.
 
-Port of ``videomv_tpu/inference/pipeline.py::T2VPipeline`` without the
-multi-device serving paths: CLIP text tower → DDIM with classifier-free
-guidance over ``UNetSD_T2VBase`` (cond and uncond rows in one batched
-forward), optionally with the Gaussian-splat refine at DDIM steps
-{20, 30, 40} (LGM reconstruction, splat re-render, VAE re-encode;
-``inference/refine.py``) → VAE decode to uint8 views, all on one explicit
-``device``. ``export_ply`` writes the LGM's Gaussians of a generated orbit.
+Port of ``videomv_tpu/inference/pipeline.py::T2VPipeline``: CLIP text tower
+→ DDIM with classifier-free guidance over ``UNetSD_T2VBase`` (cond and
+uncond rows in one batched forward), optionally with the Gaussian-splat
+refine at DDIM steps {20, 30, 40} (LGM reconstruction, splat re-render, VAE
+re-encode; ``inference/refine.py``) → VAE decode to uint8 views, on one
+explicit ``device`` per process. ``export_ply`` writes the LGM's Gaussians
+of a generated orbit.
+
+Several processes (``torch.distributed``, one device each) serve in three
+ways, as the JAX pipeline does over a mesh:
+
+- ``generate(frame_parallel=True)``: one sample's frames over an ``('sp',)``
+  mesh (``parallel.infer``), or with ``serving_tp`` > 1 in the config over
+  an ``('sp', 'tp')`` mesh whose tp ranks split the attention heads
+  (``parallel.tp``). Each rank samples and decodes its frames; the frames
+  are all-gathered, and ranks outside the mesh receive them from rank 0;
+- ``generate_batch(data_parallel=True)``: the prompts padded to a multiple
+  of the world (the last one repeated), each rank samples its rows batched,
+  and the rows are all-gathered;
+- ``generate_batch(force_batched=True)``: one batched program over all the
+  prompts on each rank (on one process, without either flag, it loops
+  ``generate``).
+
+Every rank holds the same weights: the seeded init and the checkpoints are
+read alike on each.
 
 Behaviour kept from the JAX pipeline: the ", 3d asset" prompt suffix, the
 cached negative-prompt encoding as ``zero_y``, the ``[cond; uncond]`` CFG
@@ -41,6 +59,16 @@ from ..diffusion import GaussianDiffusion, ddim_sample_loop
 from ..models import AutoencoderKL, CLIPTextTower, UNetSD_T2VBase
 from ..models.lgm import LGM, LGMOptions
 from ..ops.ply_io import save_ply
+from ..parallel.collectives import all_gather_cat, broadcast
+from ..parallel.infer import (
+    FrameShard,
+    frame_parallel_mesh,
+    frame_sharded,
+    in_mesh,
+    shard_on_axis,
+)
+from ..parallel.mesh import make_mesh, shard_batch, world_size
+from ..parallel.tp import place_params_tp
 from ..training.checkpoints import (
     init_models,
     load_matched,
@@ -122,6 +150,8 @@ class T2VPipeline:
             output_size=int(cfg.get("gs_render_size", 256)))
         self._camera_cache: Dict[tuple, tuple] = {}
         self._negative_cache: Dict[str, torch.Tensor] = {}
+        self._sp_mesh, self._sp_tried, self._dp_mesh = None, False, None
+        self._tp_cut = False
 
     @property
     def models(self) -> Dict[str, torch.nn.Module]:
@@ -241,15 +271,85 @@ class T2VPipeline:
             self._camera_cache[key] = cached
         return cached
 
+    def _serving_mesh(self):
+        """The single-sample serving mesh of ``generate(frame_parallel=True)``,
+        built once: the ``('sp',)`` frame-parallel mesh (the largest divisor
+        of ``max_frames`` within the world), or with ``serving_tp`` > 1 an
+        ``('sp', 'tp')`` mesh whose tp ranks hold their heads of the UNet's
+        attention (``place_params_tp``, in place: from then on the pipeline
+        serves only ``frame_parallel`` requests, ``_whole_unet``). None on one
+        rank."""
+        if self._sp_tried:
+            return self._sp_mesh
+        self._sp_tried = True
+        tp_n = int(self.cfg.get("serving_tp", 1))
+        if tp_n <= 1:
+            self._sp_mesh = frame_parallel_mesh(self.max_frames, device_type=self.device.type)
+            return self._sp_mesh
+        avail = world_size()
+        sp_n = max(d for d in range(1, max(avail // tp_n, 1) + 1) if self.max_frames % d == 0)
+        if sp_n * tp_n > avail:
+            logger.warning("serving_tp=%d: no usable mesh on %d devices — single-device", tp_n,
+                           avail)
+            return None
+        from torch.distributed.device_mesh import DeviceMesh
+
+        mesh = DeviceMesh(self.device.type, torch.arange(sp_n * tp_n).reshape(sp_n, tp_n),
+                          mesh_dim_names=("sp", "tp"))
+        if in_mesh(mesh):
+            self._tp_cut = place_params_tp(mesh, self.unet, head_dim=self.unet.head_dim) > 0
+        self._sp_mesh = mesh
+        return mesh
+
+    def _whole_unet(self, what: str) -> None:
+        """Raise when ``serving_tp`` has cut the UNet's attention to this
+        rank's heads: ``what`` would run the cut modules outside the
+        ``('sp', 'tp')`` program, and their all-reduce would sum other
+        ranks' partial sums of other samples into its own."""
+        if self._tp_cut:
+            raise RuntimeError(
+                f"{what}: this pipeline's UNet holds only this rank's attention heads "
+                f"(serving_tp={self.cfg.get('serving_tp')}); it serves generate("
+                "frame_parallel=True) alone — build another pipeline for other requests")
+
+    def _frame_parallel(self, mesh, noise: torch.Tensor, cam: torch.Tensor, sample_fn):
+        """``sample_fn(noise, cam)`` on this rank's frames of the sample
+        under ``frame_sharded``, decoded here; returns every frame's latents
+        and uint8 views, gathered over the mesh's sp ranks and broadcast from
+        rank 0 to the ranks outside the mesh."""
+        b, f = noise.shape[0], self.max_frames
+        if in_mesh(mesh):
+            shard = FrameShard.of(mesh, f)
+            with frame_sharded(shard):
+                latents = sample_fn(shard_on_axis(mesh, noise, 2), shard_on_axis(mesh, cam, 1))
+            frames = self._decode_latents(latents)
+            latents, frames = shard.gather(latents, 2), shard.gather(frames, 1)
+        else:
+            h, w = self.latent_hw
+            latents = torch.empty(noise.shape, device=self.device)
+            frames = torch.empty((b, f, h * self.scale, w * self.scale, 3), dtype=torch.uint8,
+                                 device=self.device)
+        if world_size() > mesh.size():
+            broadcast(latents, 0)
+            broadcast(frames, 0)
+        return latents, frames
+
+    def _data_mesh(self):
+        if self._dp_mesh is None:
+            self._dp_mesh = make_mesh(device_type=self.device.type)
+        return self._dp_mesh
+
     @torch.no_grad()
     def sample(self, noise: torch.Tensor, y: torch.Tensor, zero_y: torch.Tensor,
                cam: torch.Tensor, steps: int, guide_scale: float,
-               gs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
-               ) -> torch.Tensor:
+               gs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+               view_mesh=None, view_mesh_dim: str = "view") -> torch.Tensor:
         """DDIM with CFG from ``noise`` [B, 4, F, h, w]: latents, float32.
         ``gs`` = (rays, cam_view, cam_view_proj) turns the Gaussian-splat
         refine on, with the config's ``gs_refine_uncond`` (default
-        ``full``), ``gs_refine_views`` and ``gs_refine_steps``."""
+        ``full``), ``gs_refine_views`` and ``gs_refine_steps``; ``view_mesh``
+        and ``view_mesh_dim`` say how this rank's share of the sample lies on
+        a serving mesh (``make_refine_fn``)."""
         b = noise.shape[0]
         unet = self.unet
 
@@ -269,7 +369,8 @@ class T2VPipeline:
                 y=y, zero_y=zero_y, cam=cam, gs_rays=rays, cam_view=cam_view,
                 cam_view_proj=cam_view_proj,
                 uncond_mode=str(self.cfg.get("gs_refine_uncond", "full")),
-                view_idxs=tuple(self.cfg.get("gs_refine_views", REFINE_VIEW_IDXS)))
+                view_idxs=tuple(self.cfg.get("gs_refine_views", REFINE_VIEW_IDXS)),
+                view_mesh=view_mesh, view_mesh_dim=view_mesh_dim)
         return ddim_sample_loop(
             self.diffusion, cfg_model, noise, ddim_timesteps=steps, guide_scale=guide_scale,
             refine_fn=refine_fn,
@@ -306,10 +407,15 @@ class T2VPipeline:
         camera_distance: float = 2.0,
         y_words: Optional[torch.Tensor] = None,
         negative_words: Optional[torch.Tensor] = None,
+        frame_parallel: bool = False,
+        noise: Optional[torch.Tensor] = None,
     ) -> Dict[str, np.ndarray]:
         """One prompt → ``max_frames`` orbit views: frames uint8 [F, H, W, 3]
         and latents [1, 4, F, h, w]. ``use_gs_refine`` samples with the
-        Gaussian-splat refine (the config must set ``UNet.use_lgm_refine``)."""
+        Gaussian-splat refine (the config must set ``UNet.use_lgm_refine``).
+        ``frame_parallel`` spreads the sample's frames over the ranks (module
+        docstring; every rank calls and returns the whole sample; one rank
+        runs it alone). ``noise`` [1, 4, F, h, w] replaces the seed's."""
         cfg = self.cfg
         guide_scale = guide_scale if guide_scale is not None else float(cfg.get("guide_scale", 9.0))
         seed = seed if seed is not None else int(cfg.get("seed", 0))
@@ -320,28 +426,84 @@ class T2VPipeline:
         if negative_words is None:
             negative_words = self._negative()
         cam, *gs = self._get_cameras(elevation, camera_distance)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        h, w = self.latent_hw
-        noise = torch.randn((1, 4, self.max_frames, h, w), generator=gen, device=self.device)
-        latents = self.sample(noise, y_words, negative_words, cam, steps, guide_scale,
-                              gs=tuple(gs) if use_gs_refine else None)
-        frames = self._decode_latents(latents)
+        gs = tuple(gs) if use_gs_refine else None
+        if noise is None:
+            noise = self._noise(1, seed)
+        mesh = self._serving_mesh() if frame_parallel else None
+        if mesh is None:
+            self._whole_unet("generate(frame_parallel=False)")
+            latents = self.sample(noise, y_words, negative_words, cam, steps, guide_scale, gs=gs)
+            frames = self._decode_latents(latents)
+        else:
+            latents, frames = self._frame_parallel(mesh, noise, cam, lambda nz, cm: self.sample(
+                nz, y_words, negative_words, cm, steps, guide_scale, gs=gs,
+                view_mesh=mesh if gs else None))
         return {"frames": frames[0].cpu().numpy(), "latents": latents.cpu().numpy()}
 
+    def _noise(self, b: int, seed: int) -> torch.Tensor:
+        """The initial noise [b, 4, F, h, w] of ``seed``, on the device."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        h, w = self.latent_hw
+        return torch.randn((b, 4, self.max_frames, h, w), generator=gen, device=self.device)
+
+    @torch.no_grad()
     def generate_batch(self, prompts, steps: int = 50, guide_scale: Optional[float] = None,
                        use_gs_refine: bool = False, seed: Optional[int] = None,
-                       elevation: float = 15.0, camera_distance: float = 2.0
-                       ) -> Dict[str, np.ndarray]:
-        """Several prompts on one device, one ``generate`` each (prompt i
-        with seed + i), as the JAX pipeline does on one device. Frames uint8
-        [B, F, H, W, 3]."""
-        seed = seed if seed is not None else int(self.cfg.get("seed", 0))
-        outs = [self.generate(p, steps=steps, guide_scale=guide_scale,
-                              use_gs_refine=use_gs_refine, seed=seed + i,
-                              elevation=elevation, camera_distance=camera_distance)
-                for i, p in enumerate(prompts)]
-        return {"frames": np.stack([o["frames"] for o in outs]),
-                "latents": np.stack([o["latents"][0] for o in outs])}
+                       elevation: float = 15.0, camera_distance: float = 2.0,
+                       data_parallel: bool = False, force_batched: bool = False,
+                       y_words: Optional[torch.Tensor] = None,
+                       negative_words: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
+        """Several prompts → frames uint8 [B, F, H, W, 3] and latents
+        [B, 4, F, h, w].
+
+        One batched program over the B prompts (CFG rows ``[B cond; B
+        uncond]``, the refine over 2B rows or B in ``shared``), from noise
+        [B, ...] of ``seed``. With ``data_parallel`` on several ranks the
+        prompts are padded to a multiple of the world by repeating the last,
+        each rank samples its rows, and the rows are gathered (every rank
+        returns the batch). On one rank without ``force_batched``, each prompt
+        is one ``generate`` (prompt i with seed + i), as the JAX pipeline does
+        on one device. ``y_words`` [B, L, C] and ``negative_words`` [1, L, C]
+        replace the text encodes, ``noise`` the seed's noise."""
+        cfg = self.cfg
+        guide_scale = guide_scale if guide_scale is not None else float(cfg.get("guide_scale", 9.0))
+        seed = seed if seed is not None else int(cfg.get("seed", 0))
+        self._whole_unet("generate_batch")
+        b = len(prompts)
+        prompts = [p if "3d asset" in p else p + ", 3d asset" for p in prompts]
+        if y_words is None:
+            y_words = self.encode_text(prompts)
+        zero1 = self._negative() if negative_words is None else negative_words
+        n = world_size()
+        if not force_batched and b > 1 and n == 1:
+            outs = [self.generate(p, steps=steps, guide_scale=guide_scale,
+                                  use_gs_refine=use_gs_refine, seed=seed + i,
+                                  elevation=elevation, camera_distance=camera_distance,
+                                  y_words=y_words[i:i + 1], negative_words=zero1)
+                    for i, p in enumerate(prompts)]
+            return {"frames": np.stack([o["frames"] for o in outs]),
+                    "latents": np.stack([o["latents"][0] for o in outs])}
+        cam1, *gs = self._get_cameras(elevation, camera_distance)
+        gs = tuple(gs) if use_gs_refine else None
+        rows = [noise if noise is not None else self._noise(b, seed), y_words,
+                zero1.expand(b, *zero1.shape[1:]), cam1.expand(b, *cam1.shape[1:])]
+        if data_parallel and n > 1:
+            pad = (-b) % n
+            if pad:  # pad-and-mask: repeat the last prompt's rows, drop them after
+                rows = [torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) for x in rows]
+            mesh = self._data_mesh()
+            noise_r, y_r, zero_r, cam_r = (shard_batch(mesh, x) for x in rows)
+            latents = self.sample(noise_r, y_r, zero_r, cam_r, steps, guide_scale, gs=gs,
+                                  view_mesh=mesh if gs else None, view_mesh_dim="batch")
+            frames = self._decode_latents(latents)
+            group = mesh.get_group()
+            latents = all_gather_cat(latents, group)[:b]
+            frames = all_gather_cat(frames, group)[:b]
+        else:
+            latents = self.sample(*rows, steps, guide_scale, gs=gs)
+            frames = self._decode_latents(latents)
+        return {"frames": frames.cpu().numpy(), "latents": latents.cpu().numpy()}
 
     # ------------------------------------------------------- 3D export
 

@@ -7,7 +7,16 @@ a fake x0; four canonical views are VAE-decoded; the LGM reconstructs
 Gaussians from them and their Plücker rays; every view is re-rendered
 (background 0.5, the packed payload) and re-encoded with the VAE posterior
 mode (no noise enters), and those latents are the x0 of the DDIM update.
-The multi-device render (``view_mesh``) comes with the multi-device slice.
+
+With a serving mesh (``view_mesh``) the refine runs on one rank's share:
+
+- ``view_mesh_dim='view'`` (frame-parallel serving): the rank holds a block
+  of the frames. Each rank decodes the canonical views among its own frames,
+  the four are all-gathered, the LGM runs on every rank (replicated), and
+  each rank renders and encodes its own frames' views
+  (``render_gaussians_view_sharded``);
+- ``view_mesh_dim='batch'`` (data-parallel serving): the rank holds whole
+  rows and refines them alone.
 """
 
 from __future__ import annotations
@@ -19,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..data.cameras import GSCameraSettings
-from ..ops.gaussian_splat import render_gaussians
+from ..ops.gaussian_splat import render_gaussians, render_gaussians_view_sharded
+from ..parallel.infer import FrameShard
 
 __all__ = ["REFINE_VIEW_IDXS", "make_refine_fn"]
 
@@ -47,6 +57,8 @@ def make_refine_fn(
     cam_view_proj: torch.Tensor,
     uncond_mode: str = "full",
     view_idxs: tuple = REFINE_VIEW_IDXS,
+    view_mesh=None,
+    view_mesh_dim: str = "view",
 ) -> Callable:
     """Build ``refine_fn(xt, t) -> (cond_x0, uncond_x0)`` latents.
 
@@ -56,7 +68,14 @@ def make_refine_fn(
     ``uncond_mode``: ``"full"`` (the reference's semantics) runs both CFG
     rows through the refine; ``"shared"`` (the shipped serving default)
     refines the cond row only and returns it for both rows, which collapses
-    the guidance to the cond refine at half the cost."""
+    the guidance to the cond refine at half the cost.
+
+    ``view_mesh`` / ``view_mesh_dim``: the serving mesh and how this rank's
+    share of the sample lies on it (module docstring): its ``'sp'`` axis
+    under ``'view'``, its ``'dp'`` axis under ``'batch'``.
+    Under ``'view'``, ``xt`` holds the rank's frames, the UNet is called
+    inside the caller's ``frame_sharded``, and ``gs_rays``, ``cam_view`` and
+    ``cam_view_proj`` are every view's."""
     if uncond_mode not in ("full", "shared"):
         raise ValueError(f"uncond_mode must be 'full' or 'shared', got {uncond_mode!r}")
     shared = uncond_mode == "shared"
@@ -66,6 +85,27 @@ def make_refine_fn(
     vid_mean = torch.as_tensor(_VID_MEAN, device=dev).reshape(1, 1, 3, 1, 1)
     vid_std = torch.as_tensor(_VID_STD, device=dev).reshape(1, 1, 3, 1, 1)
     bg = torch.full((3,), 0.5, device=dev)  # the reference's bg_color_factor 0.5
+    view_mesh_axis = "sp" if view_mesh_dim == "view" else "dp"
+    shard = (FrameShard.of(view_mesh, cam_view.shape[1], view_mesh_axis)
+             if view_mesh is not None and view_mesh_dim == "view" else None)
+    if shard is not None:
+        # which canonical views each rank holds, padded to the most any holds
+        owned = [[i - r * shard.local for i in view_idxs
+                  if r * shard.local <= i < (r + 1) * shard.local] for r in range(shard.size)]
+        pad = max(len(o) for o in owned)
+        mine = torch.as_tensor(owned[shard.index], dtype=torch.long, device=dev)
+        # where each canonical view lands in the gathered [n · pad] views
+        order = torch.as_tensor([r * pad + owned[r].index(i - r * shard.local)
+                                 for i in view_idxs for r in [i // shard.local]],
+                                dtype=torch.long, device=dev)
+
+    def decode(lat: torch.Tensor) -> torch.Tensor:
+        """[b2, 4ch, k, h, w] latents → [b2, k, 3, H, W] normalised LGM views."""
+        b2, k = lat.shape[0], lat.shape[2]
+        imgs = vae.decode(lat.permute(0, 2, 1, 3, 4).reshape(b2 * k, 4, *lat.shape[-2:])
+                          / scale_factor)
+        imgs = imgs.reshape(b2, k, 3, *imgs.shape[-2:])
+        return ((imgs * 0.5 + 0.5).clamp(0.0, 1.0) - vid_mean) / vid_std
 
     @torch.no_grad()
     def refine_fn(xt: torch.Tensor, t: torch.Tensor):
@@ -77,20 +117,31 @@ def make_refine_fn(
         eps = unet(x2, t2, y=y2, camera_data=c2)
         fake_x0 = diffusion.pred_to_x0(eps, x2, t2)
 
-        # decode the canonical views of every row: [b2·4, 3, H, W]
-        dec = fake_x0.index_select(2, idxs)                    # [b2, 4ch, 4, h, w]
-        b2 = dec.shape[0]
-        dec = dec.permute(0, 2, 1, 3, 4).reshape(b2 * len(view_idxs), 4, *dec.shape[-2:])
-        imgs = vae.decode(dec / scale_factor)
-        imgs = imgs.reshape(b2, len(view_idxs), 3, *imgs.shape[-2:])
-        imgs = ((imgs * 0.5 + 0.5).clamp(0.0, 1.0) - vid_mean) / vid_std
+        b2 = fake_x0.shape[0]
+        if shard is None:
+            # decode the canonical views of every row: [b2, 4, 3, H, W]
+            imgs = decode(fake_x0.index_select(2, idxs))
+        else:
+            # decode the canonical views among this rank's frames, gather
+            # every rank's (padded to the same count) and put them in order
+            local = decode(fake_x0.index_select(2, mine)) if len(mine) else None
+            size = gs_rays.shape[-1]  # the LGM's input size, the decode's too
+            part = fake_x0.new_zeros((b2, pad, 3, size, size))
+            if local is not None:
+                part[:, :len(mine)] = local
+            imgs = shard.gather(part, 1).index_select(1, order)
 
         rays = gs_rays.index_select(1, idxs).expand(b2, -1, -1, -1, -1)
         gaussians = lgm(torch.cat([imgs, rays], dim=2))       # [b2, N, 14]
 
-        out = render_gaussians(
-            gaussians, cam_view.expand(b2, -1, -1, -1), cam_view_proj.expand(b2, -1, -1, -1),
-            bg_color=bg, img_size=out_size, fovy_deg=gs_settings.fovy, packed=True)
+        kw = dict(bg_color=bg, img_size=out_size, fovy_deg=gs_settings.fovy, packed=True)
+        cv = cam_view.expand(b2, -1, -1, -1)
+        cvp = cam_view_proj.expand(b2, -1, -1, -1)
+        if view_mesh is None:
+            out = render_gaussians(gaussians, cv, cvp, **kw)
+        else:
+            out = render_gaussians_view_sharded(view_mesh, gaussians, cv, cvp,
+                                                axis=view_mesh_axis, shard_dim=view_mesh_dim, **kw)
         renders = out["image"]                                  # [b2, V, 3, S, S]
         V = renders.shape[1]
         r = renders.reshape(b2 * V, 3, out_size, out_size)

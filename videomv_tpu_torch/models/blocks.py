@@ -33,6 +33,8 @@ from ..ops.fused_spatial import (
     kernel_params,
     spatial_fused_eligible,
 )
+from ..parallel.collectives import all_reduce, group_norm
+from ..parallel.infer import current_frame_shard
 
 __all__ = [
     "BasicTransformerBlock",
@@ -84,7 +86,12 @@ class TimestepMLP(nn.Sequential):
 
 class CrossAttention(nn.Module):
     """Multi-head (cross-)attention with fp32 softmax: ``to_q/to_k/to_v``
-    without bias, ``to_out.0`` with bias (MemoryEfficientCrossAttention)."""
+    without bias, ``to_out.0`` with bias (MemoryEfficientCrossAttention).
+
+    Under tensor parallelism (``parallel.tp.place_params_tp``) the module
+    holds this rank's heads, ``to_out.0`` its input columns of them, and
+    ``tp_group`` the ranks that hold the others: the output projection's
+    partial sums are all-reduced over it before the bias."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
                  dim_head: int = 64, dropout: float = 0.0):
@@ -96,6 +103,7 @@ class CrossAttention(nn.Module):
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(dropout))
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -105,8 +113,12 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, s_q, self.heads, self.dim_head)
         k = self.to_k(context).view(b, s_kv, self.heads, self.dim_head)
         v = self.to_v(context).view(b, s_kv, self.heads, self.dim_head)
-        out = dot_product_attention(q, k, v, mask=mask)
-        return self.to_out(out.reshape(b, s_q, self.heads * self.dim_head))
+        out = dot_product_attention(q, k, v, mask=mask).reshape(b, s_q, self.heads * self.dim_head)
+        if self.tp_group is None:
+            return self.to_out(out)
+        proj = self.to_out[0]
+        partial = all_reduce(F.linear(out, proj.weight), self.tp_group)
+        return self.to_out[1](partial + proj.bias)
 
 
 class GEGLU(nn.Module):
@@ -188,7 +200,7 @@ class SpatialTransformer(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         bf, c, hh, ww = x.shape
         if (not self.training and context is not None and self.depth == 1
-                and self.d_head == 64
+                and self.d_head == 64 and self.transformer_blocks[0].attn1.tp_group is None
                 and spatial_fused_eligible(hh * ww, c, self.n_heads * self.d_head, self.n_heads,
                                            x.dtype, x.is_cuda)):
             out = fused_spatial_transformer(
@@ -220,14 +232,26 @@ class TemporalTransformer(nn.Module):
         self.proj_out = zero_module(nn.Conv1d(inner, in_channels, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, f, hh, ww = x.shape
-        h = self.norm(x).permute(0, 3, 4, 2, 1).reshape(b * hh * ww, f, c)
+        shard = current_frame_shard()
+        if shard is None:
+            b, c, f, hh, ww = x.shape
+            return self._tokens(x.reshape(b, c, f, hh * ww), None).reshape(x.shape)
+        # frame-sharded: every frame of this rank's tokens, and back
+        return shard.tokens_to_frames(self._tokens(shard.frames_to_tokens(x), shard.group),
+                                      x.shape[-2:])
+
+    def _tokens(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The block over ``x [B, C, F, S]``: all F frames of S tokens; the
+        norm's statistics span ``group`` (None: this rank's tokens are all
+        of them)."""
+        b, c, f, s = x.shape
+        h = group_norm(self.norm, x, group).permute(0, 3, 2, 1).reshape(b * s, f, c)
         # a k=1 conv1d over the token layout is a linear map over channels
         h = F.linear(h, self.proj_in.weight[:, :, 0], self.proj_in.bias)
         for block in self.transformer_blocks:
             h = block(h)
         h = F.linear(h, self.proj_out.weight[:, :, 0], self.proj_out.bias)
-        return x + h.reshape(b, hh, ww, f, c).permute(0, 4, 3, 1, 2)
+        return x + h.reshape(b, s, f, c).permute(0, 3, 2, 1)
 
 
 def _tconv(c_in: int, c_out: int, dropout: Optional[float], zero: bool = False) -> nn.Sequential:
@@ -253,7 +277,18 @@ class TemporalConvBlockV2(nn.Module):
         self.conv4 = _tconv(in_dim, in_dim, dropout, zero=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.conv4(self.conv3(self.conv2(self.conv1(x))))
+        shard = current_frame_shard()
+        if shard is None:
+            return x + self.conv4(self.conv3(self.conv2(self.conv1(x))))
+        # frame-sharded: the (3, 1, 1) convolutions see every frame of this
+        # rank's tokens ([B, C, F, S, 1]), the norms every rank's statistics
+        h = shard.frames_to_tokens(x)[..., None]
+        out = h
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            out = group_norm(conv[0], out, shard.group)
+            for layer in list(conv)[1:]:
+                out = layer(out)
+        return shard.tokens_to_frames((h + out)[..., 0], x.shape[-2:])
 
 
 class ResBlock(nn.Module):

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.infer import current_frame_shard
 from .blocks import TimestepMLP, sinusoidal_embedding
 from .unet_t2v import UNetSD_T2VBase
 
@@ -157,6 +158,14 @@ class UNetSD_I2VGen(UNetSD_T2VBase):
             nn.Linear(y_dim, embed_dim), nn.SiLU(),
             nn.Linear(embed_dim, context_dim * num_tokens))
 
+    def fsdp_units(self):
+        """The T2V backbone's units, the adapters the forward calls whole,
+        and each convolution of ``local_image_embedding`` (called one by
+        one)."""
+        return (super().fsdp_units()
+                + [self.local_image_concat, self.local_temporal_encoder, self.context_embedding]
+                + [m for m in self.local_image_embedding if any(True for _ in m.parameters())])
+
     def forward(
         self,
         x: torch.Tensor,
@@ -176,19 +185,27 @@ class UNetSD_I2VGen(UNetSD_T2VBase):
             local_image = local_image[:, :, None]
         local_image = local_image[:, :, :1].to(dt)
 
-        # ---- concat plane (unet_i2vgen.py:331-346)
-        if f > 1:
-            ramp = (torch.arange(1, f, dtype=torch.float32, device=x.device) / (f - 1)).to(dt)
-            mask_pos = ramp.reshape(1, 1, f - 1, 1, 1).expand(b, c, f - 1, hh, ww)
+        # ---- concat plane (unet_i2vgen.py:331-346). It mixes frames twice:
+        # its ramp counts the sample's frames, and its temporal transformer
+        # attends over them. It depends on the reference frame alone, not on
+        # x, so a frame-sharded rank builds it over all the sample's frames
+        # and keeps its own block of them (no collective).
+        shard = current_frame_shard()
+        fa = f if shard is None else shard.frames
+        if fa > 1:
+            ramp = (torch.arange(1, fa, dtype=torch.float32, device=x.device) / (fa - 1)).to(dt)
+            mask_pos = ramp.reshape(1, 1, fa - 1, 1, 1).expand(b, c, fa - 1, hh, ww)
             ximg = torch.cat([local_image, mask_pos], dim=2)
         else:
             ximg = local_image
-        xi = self.local_image_concat(ximg.permute(0, 2, 1, 3, 4).reshape(b * f, c, hh, ww))
+        xi = self.local_image_concat(ximg.permute(0, 2, 1, 3, 4).reshape(b * fa, c, hh, ww))
         cd = self.concat_dim
         # the tiny temporal transformer over the frames of every pixel
-        xi = xi.reshape(b, f, cd, hh, ww).permute(0, 3, 4, 1, 2).reshape(b * hh * ww, f, cd)
+        xi = xi.reshape(b, fa, cd, hh, ww).permute(0, 3, 4, 1, 2).reshape(b * hh * ww, fa, cd)
         xi = self.local_temporal_encoder(xi)
-        xi = xi.reshape(b, hh, ww, f, cd).permute(0, 3, 4, 1, 2)  # [B, F, cd, H, W]
+        xi = xi.reshape(b, hh, ww, fa, cd).permute(0, 3, 4, 1, 2)  # [B, F, cd, H, W]
+        if shard is not None:
+            xi = xi[:, shard.start:shard.start + f]
         # the reference adds the plane twice (kept for weight compatibility)
         concat = 2.0 * xi
 

@@ -20,11 +20,17 @@ are the forward's. ``remat_policy`` is the JAX key: ``full`` (keep only the
 blocks' inputs) is ported; ``dots`` and ``dots_no_batch``, which no shipped
 config sets, raise ``NotImplementedError``. Without autograd recording
 (sampling) the blocks run plainly.
+
+Under ``parallel.infer.frame_sharded`` the input holds one rank's block of
+the sample's frames (and ``camera_data`` the same block): every block runs on
+those frames, and only the temporal ones (the ``TemporalTransformer``s and
+each ``ResBlock``'s temporal convolutions) mix frames, through the
+collectives of ``parallel.collectives``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -206,6 +212,19 @@ class UNetSD_T2VBase(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.out[2].weight.dtype
+
+    def fsdp_units(self) -> List[nn.Module]:
+        """The modules the forward calls as a whole, one FSDP unit each
+        (``parallel.mesh.apply_fsdp``): every block of the encoder, the
+        middle and the decoder, the embedding MLPs and the output head."""
+        units: List[nn.Module] = []
+        for blocks in list(self.input_blocks) + [self.middle_block] + list(self.output_blocks):
+            units.extend(blocks if isinstance(blocks, nn.ModuleList) else [blocks])
+        units.append(self.time_embed)
+        units.extend(getattr(self, n) for n in ("fps_embedding", "camera_embedding")
+                     if hasattr(self, n))
+        units.append(self.out)
+        return units
 
     def _block_call(self, mod: nn.Module, *args):
         """``mod(*args)``, recomputed in the backward pass when

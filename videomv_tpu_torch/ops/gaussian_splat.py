@@ -37,6 +37,7 @@ __all__ = [
     "quat_to_rotmat",
     "rasterize_dense",
     "render_gaussians",
+    "render_gaussians_view_sharded",
 ]
 
 
@@ -246,3 +247,38 @@ def render_gaussians(
              for v in range(V)] for b in range(B)]
     return {key: torch.stack([torch.stack([o[i] for o in row]) for row in outs])
             for i, key in enumerate(("image", "alpha", "depth"))}
+
+
+def render_gaussians_view_sharded(
+    mesh,
+    gaussians: torch.Tensor,
+    cam_view: torch.Tensor,
+    cam_view_proj: torch.Tensor,
+    axis: str = "sp",
+    shard_dim: str = "view",
+    **kwargs,
+) -> Dict[str, torch.Tensor]:
+    """``render_gaussians`` of this rank's share of a render spread over
+    ``mesh[axis]`` (one process per device; no collective):
+
+    - ``shard_dim='view'`` (frame-parallel serving): the scene ``[B, N, 14]``
+      and the cameras ``[B, V, 4, 4]`` are every rank's, and the rank renders
+      its block of ``V / n`` views (V must divide by n), the frames its
+      sampler holds. Returns ``[B, V/n, ...]``;
+    - ``shard_dim='batch'`` (data-parallel serving): the scenes and cameras
+      passed are the rank's own rows, and it renders all their views.
+
+    The JAX package's ``shard_map`` of the same name returns the global
+    array laid out over the mesh; here each rank keeps its block."""
+    if shard_dim == "batch":
+        return render_gaussians(gaussians, cam_view, cam_view_proj, **kwargs)
+    if shard_dim != "view":
+        raise ValueError(f"shard_dim must be 'view' or 'batch', got {shard_dim!r}")
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    r = mesh.get_local_rank(axis)
+    views = cam_view.shape[1]
+    if views % n:
+        raise ValueError(f"{views} views do not divide over {n} devices")
+    k = views // n
+    return render_gaussians(gaussians, cam_view[:, r * k:(r + 1) * k],
+                            cam_view_proj[:, r * k:(r + 1) * k], **kwargs)

@@ -1,7 +1,9 @@
-"""CLI entry of the port: training on one device.
+"""CLI entry of the port: training on one device, or data-parallel under
+``torchrun``.
 
     python -m videomv_tpu_torch.training --cfg configs/t2v_train.yaml \
         [--debug] [--steps N] [--batch-size B] [--device cuda] [k v ...]
+    torchrun --nproc-per-node N -m videomv_tpu_torch.training --cfg ...
 
 Takes the arguments of the JAX package's ``train_net.py`` plus ``--device``.
 It runs on the card: without a CUDA device it stops with an error, and
@@ -12,8 +14,10 @@ small size), the joint LAION finetune (``configs/t2v_train_laion.yaml``, image
 steps at f = 1 when its shards exist), the I2V UNet finetune
 (``configs/i2vgen_xl_train.yaml``, ``TASK_TYPE: train_i2v_entrance``) and the
 LGM-refine finetune behind either denoiser (``UNet.use_lgm_refine True``, or
-``configs/lgm_refine_train_tiny.yaml``). ``param_sharding: fsdp`` is refused:
-it needs several devices.
+``configs/lgm_refine_train_tiny.yaml``). Under ``torchrun`` each process
+drives ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``), the batch is
+the global one split over the processes, ``param_sharding: fsdp`` shards the
+UNet, and rank 0 logs and writes (``training.engine``).
 """
 
 from __future__ import annotations
@@ -43,10 +47,12 @@ def main(argv: Optional[List[str]] = None) -> float:
     import torch
 
     from ..config import load_config
+    from ..parallel.mesh import init_distributed, local_device
     from ..utils.device import resolve_device
     from .engine import T2VTrainer
 
-    device = resolve_device(args.device)
+    device = local_device(str(resolve_device(args.device)))
+    init_distributed(device)
     cfg = load_config(args.cfg_file, opts=args.opts or [])
     cfg.debug = args.debug
     task = cfg.get("TASK_TYPE", "train_t2v_entrance")

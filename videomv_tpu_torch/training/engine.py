@@ -1,11 +1,15 @@
-"""Training engine of the port on one device: the plain and joint-LAION
-UNet finetune, the I2V UNet finetune, and the LGM-refine finetune.
+"""Training engine of the port: the plain and joint-LAION UNet finetune,
+the I2V UNet finetune, and the LGM-refine finetune, on one device or
+data-parallel over every process of ``torch.distributed``.
 
 Port of ``videomv_tpu/training/engine.py::T2VTrainer``. One explicit
-``device``, no mesh:
+``device`` per process:
 
   JAX engine                          → here
-  jitted step over a device mesh      → eager step on ``device``
+  jitted step over a device mesh      → eager step on ``device``; with a
+                                        process group, the data-parallel step
+                                        over the 1-D mesh of every rank
+  ``param_sharding: fsdp``            → FSDP2 over the UNet's blocks
   fp32 params, bf16 module dtype      → fp32 trained masters under bf16
                                         autocast; frozen towers stored bf16
   optax AdamW / Adafactor chains      → ``training.optim``, the same updates
@@ -40,9 +44,17 @@ Both run the frozen VAE encode and the text encode on the device before the
 step, with the video crossing host → device as uint8 (``wire_uint8``).
 ``prng_impl`` (the JAX package's dropout-stream generator) is read and
 ignored: the port's dropout draws from the step's generator.
-``param_sharding: fsdp`` is not ported and raises; ``dp_devices`` > 1 runs
-the whole batch on the one device, which is the JAX mesh's step, with a
-warning.
+
+Data parallelism (a process group, e.g. under ``torchrun``): the data mesh
+is the world. Every rank reads the same global batch and keeps its own rows
+before the VAE and text encode; the steps draw the global batch's randoms
+and average the gradients (``parallel.train_step``). ``dp_devices`` below
+the world size raises (a rank would hold no rows); above it, the world is
+used and the run says so, as the JAX mesh takes the devices there are.
+``param_sharding: fsdp`` shards the UNet's blocks, its AdamW moments and its
+EMA over the mesh; a save gathers the full state, a restore re-shards it.
+Rank 0 logs and writes. Without a process group the run is on one device,
+and ``fsdp`` has nothing to shard.
 """
 
 from __future__ import annotations
@@ -83,6 +95,7 @@ from ..models.clip import VIT_MEAN, VIT_STD
 from ..models.lgm import LGM, LGMOptions
 from ..models.lpips import LPIPS
 from ..parallel import TrainState, build_train_step, make_i2v_apply, make_t2v_apply
+from ..parallel.mesh import apply_fsdp, make_mesh, shard_batch, world_size
 from ..utils.video_io import save_video_grid
 from .checkpoints import (
     init_models,
@@ -94,7 +107,7 @@ from .checkpoints import (
 )
 from .hooks import VisualTrainHook
 from .lgm_refine import LGMTrainState, build_lgm_refine_step
-from .optim import build_optimizer
+from .optim import build_optimizer, local_tensor
 
 __all__ = ["T2VTrainer"]
 
@@ -120,16 +133,13 @@ class T2VTrainer:
         self.diffusion = GaussianDiffusion(**d)
         self.is_i2v = (cfg.get("TASK_TYPE", "") == "train_i2v_entrance"
                        or cfg.get("UNet", {}).get("type") == "UNetSD_I2VGen")
-        if str(cfg.get("param_sharding", "replicated")) == "fsdp":
-            raise NotImplementedError(
-                "param_sharding: fsdp shards the state over several devices; it comes with "
-                "slice E (multi-device) of the port")
-        if cfg.get("dp_devices") and int(cfg.get("dp_devices")) > 1:
-            # the JAX mesh's step over the whole batch is this device's step
-            # (configs/lgm_refine_train_tiny.yaml sets 2): run, and say so
-            logger.warning("dp_devices %s: the port runs the whole batch on %s; data "
-                           "parallelism comes with slice E (multi-device)",
-                           cfg.get("dp_devices"), device)
+        self.mesh = self._data_mesh(cfg)
+        self.rank = 0 if self.mesh is None else self.mesh.get_local_rank()
+        # the UNet finetune's state sharded over the ranks
+        self.fsdp = str(cfg.get("param_sharding", "replicated")) == "fsdp"
+        if self.fsdp and self.mesh is None:
+            logger.info("param_sharding fsdp on one process: nothing to shard")
+        self.fsdp = self.fsdp and self.mesh is not None
         if cfg.get("prng_impl"):
             logger.info("prng_impl %s ignored: the port's dropout draws from the step's "
                         "generator", cfg.get("prng_impl"))
@@ -153,6 +163,21 @@ class T2VTrainer:
             self._build_lgm(cfg)
         self.zero_y: Optional[torch.Tensor] = None
         self.resume_step = 0
+
+    def _data_mesh(self, cfg: AttrDict):
+        """The 1-D data mesh over every rank, or None without a process
+        group. ``dp_devices`` below the world size raises; above it, the
+        world is used."""
+        n = world_size()
+        want = cfg.get("dp_devices")
+        if want and int(want) < n:
+            raise ValueError(f"dp_devices {want} is below the world size {n}: a rank would hold "
+                             "no rows; launch as many processes as dp_devices")
+        if want and int(want) > n:
+            logger.info("dp_devices %s: running data-parallel on the world of %d", want, n)
+        if not torch.distributed.is_initialized():
+            return None
+        return make_mesh(device_type=self.device.type)
 
     # ------------------------------------------------------------- setup
 
@@ -200,6 +225,10 @@ class T2VTrainer:
         for m in (self.vae, self.clip):
             m.to(frozen).eval().requires_grad_(False)
         self.unet.float().train().requires_grad_(True)
+        if self.fsdp:
+            n = apply_fsdp(self.unet.fsdp_units(), self.mesh)
+            logger.info("param_sharding fsdp: %d UNet blocks sharded over %d ranks", n,
+                        self.mesh.size())
         pre = cfg.get("Pretrain", {})
         optimizer = build_optimizer(
             self.unet.named_parameters(),
@@ -212,7 +241,8 @@ class T2VTrainer:
             sd_keys_path=pre.get("sd_keys_path"),
             optimizer=str(cfg.get("optimizer", "adamw")))
         use_ema = bool(cfg.get("use_ema", False))
-        ema = [p.detach().clone() for p in self.unet.parameters()] if use_ema else None
+        ema = ([local_tensor(p.detach()).clone() for p in self.unet.parameters()]
+               if use_ema else None)
         self.state = TrainState(step=self.resume_step, unet=self.unet, optimizer=optimizer,
                                 ema=ema)
         toks = torch.as_tensor(tokenize([str(cfg.get("negative_prompt", ""))]), dtype=torch.long,
@@ -223,7 +253,8 @@ class T2VTrainer:
             self.unet_apply, self.diffusion,
             ema_decay=float(cfg.get("ema_decay", 0.9999)), use_ema=use_ema,
             p_zero=float(cfg.get("p_zero", 0.1)), zero_y=self.zero_y,
-            autocast_dtype=torch.bfloat16 if self.dtype == torch.bfloat16 else None)
+            autocast_dtype=torch.bfloat16 if self.dtype == torch.bfloat16 else None,
+            mesh=self.mesh)
 
     def _build_lgm(self, cfg: AttrDict):
         """The LGM of ``lgm_opts`` (a preset name or LGMOptions fields) and
@@ -289,7 +320,8 @@ class T2VTrainer:
             view_chunk=self._view_chunk,
             autocast_dtype=torch.bfloat16 if self.dtype == torch.bfloat16 else None)
         self.refine_step = build_lgm_refine_step(self.unet_apply, self.vae, self.lgm,
-                                                 self.diffusion, **self._step_kwargs)
+                                                 self.diffusion, mesh=self.mesh,
+                                                 **self._step_kwargs)
 
     # -------------------------------------------------------------- data
 
@@ -458,6 +490,12 @@ class T2VTrainer:
         log_dir = cfg.get("log_dir", "workspace/experiment")
         os.makedirs(log_dir, exist_ok=True)
         viz_interval = int(cfg.get("viz_interval", 0))
+        # rank 0 samples the visualisation; a sharded UNet would need every
+        # rank in its forward, so FSDP runs none
+        self._viz_here = self.rank == 0 and not self.fsdp
+        if viz_interval and self.fsdp:
+            logger.warning("viz_interval %d: no visualisation under param_sharding fsdp",
+                           viz_interval)
         # I2V samples from the batch's own conditioning (i2v_viz) instead
         viz_hook = (self.make_viz_hook(log_dir)
                     if viz_interval and not self.use_lgm_refine and not self.is_i2v else None)
@@ -481,7 +519,8 @@ class T2VTrainer:
         losses = []
         for i in range(num_steps):
             use_image = image_batches is not None and i % image_every == image_every - 1
-            host_batch = next(image_batches if use_image else batches)
+            # every rank reads the global batch and keeps its own rows
+            host_batch = shard_batch(self.mesh, next(image_batches if use_image else batches))
             feats = self.encode_batch(host_batch)
             if self.use_lgm_refine:
                 feats.update(self._gs_features(host_batch))
@@ -490,7 +529,7 @@ class T2VTrainer:
                 loss = self.train_step(self.state, feats, generator=gen)
             losses.append(loss)
             step = step0 + i + 1
-            if step % log_interval == 0:
+            if step % log_interval == 0 and self.rank == 0:
                 # the only device→host reads of the loop
                 lv = float(torch.stack(losses[-log_interval:]).mean())
                 if self.use_lgm_refine:
@@ -499,7 +538,7 @@ class T2VTrainer:
                 logger.info("step %d loss %.4f (%.2f it/s)%s", step, lv,
                             (i + 1) / (time.time() - t_start), " image" if use_image else "")
             if (viz_interval and step % viz_interval == 0 and not self.use_lgm_refine
-                    and (self.is_i2v or viz_hook is not None)):
+                    and (self.is_i2v or viz_hook is not None) and self._viz_here):
                 with self._ema_weights():
                     if self.is_i2v:
                         self.i2v_viz(step, feats, list(host_batch.get("caption", [])), log_dir)
@@ -628,35 +667,93 @@ class T2VTrainer:
     def save(self, ckpt_dir: str) -> str:
         """``torch.save`` of the train state as ``step_XXXXXXXX.pth``: the
         trained parameters, the optimizer's moments and count, the EMA
-        weights (UNet finetune) and the step."""
+        weights (UNet finetune) and the step. Every rank calls it; under FSDP
+        the full state is gathered first, and rank 0 writes. Returns the
+        path."""
         if self.use_lgm_refine:
             step = int(self.lgm_state.step)
             payload = {"lgm_params": self.lgm.state_dict(),
                        "opt_state": self.lgm_state.optimizer.state_dict(), "step": step}
         else:
             step = int(self.state.step)
-            payload = {"params": self.unet.state_dict(), "ema": self.state.ema or [],
-                       "opt_state": self.state.optimizer.state_dict(), "step": step}
-        os.makedirs(ckpt_dir, exist_ok=True)
+            opt = self.state.optimizer.state_dict()
+            if self._sharded():
+                opt = dict(opt, **{k: self._full(opt[k]) for k in ("mu", "nu")})
+            payload = {"params": self._full_unet_state(),
+                       "ema": self._full(self.state.ema) if self.state.ema else [],
+                       "opt_state": opt, "step": step}
         path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}.pth"))
-        torch.save(payload, path)
-        logger.info("saved checkpoint %s", path)
+        if self.rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            torch.save(payload, path)
+            logger.info("saved checkpoint %s", path)
+        if self.mesh is not None:
+            torch.distributed.barrier()
         return path
 
+    def _sharded(self) -> bool:
+        return self.fsdp and not self.use_lgm_refine
+
+    def _full(self, tensors):
+        """This rank's shards (the UNet's parameter order) → full tensors;
+        as they are when nothing is sharded."""
+        if not self._sharded():
+            return list(tensors)
+        from torch.distributed.tensor import DTensor
+
+        out = []
+        for p, t in zip(self.unet.parameters(), tensors):
+            if isinstance(p, DTensor):
+                t = DTensor.from_local(t, p.device_mesh, p.placements, shape=p.shape,
+                                       stride=p.stride()).full_tensor()
+            out.append(t)
+        return out
+
+    def _local(self, tensors):
+        """Full tensors (the UNet's parameter order) → this rank's shards."""
+        if not self._sharded():
+            return list(tensors)
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        return [distribute_tensor(t.to(self.device), p.device_mesh, p.placements).to_local()
+                if isinstance(p, DTensor) else t for p, t in zip(self.unet.parameters(), tensors)]
+
+    def _full_unet_state(self) -> Dict[str, torch.Tensor]:
+        if not self._sharded():
+            return self.unet.state_dict()
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            get_model_state_dict,
+        )
+
+        return get_model_state_dict(self.unet, options=StateDictOptions(full_state_dict=True))
+
     def restore(self, path: str):
-        """Resume the full train state, optimizer moments included."""
+        """Resume the full train state, optimizer moments included; under
+        FSDP the full state is loaded on every rank and re-sharded."""
         state = torch.load(path, map_location=self.device, weights_only=True)
         if self.use_lgm_refine:
             self.lgm.load_state_dict(state["lgm_params"], strict=True)
             self.lgm_state.optimizer.load_state_dict(state["opt_state"])
             self.lgm_state.step = int(state["step"])
             return self
-        self.unet.load_state_dict(state["params"], strict=True)
-        self.state.optimizer.load_state_dict(state["opt_state"])
+        opt = state["opt_state"]
+        if self._sharded():
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions,
+                set_model_state_dict,
+            )
+
+            set_model_state_dict(self.unet, state["params"],
+                                 options=StateDictOptions(full_state_dict=True))
+            opt = dict(opt, **{k: self._local(opt[k]) for k in ("mu", "nu")})
+        else:
+            self.unet.load_state_dict(state["params"], strict=True)
+        self.state.optimizer.load_state_dict(opt)
         if self.state.ema is not None:
             if len(state["ema"]) != len(self.state.ema):
                 raise ValueError(f"{path} holds no EMA weights for this UNet")
             with torch.no_grad():
-                torch._foreach_copy_(self.state.ema, list(state["ema"]))
+                torch._foreach_copy_(self.state.ema, self._local(state["ema"]))
         self.state.step = int(state["step"])
         return self

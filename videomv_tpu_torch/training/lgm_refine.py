@@ -37,6 +37,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.gaussian_splat import render_gaussians
+from ..parallel.collectives import all_reduce
+from ..parallel.train_step import sync_grads
 from ..ops.gs_cameras import canonical_gs_poses, colmap_from_poses, plucker_rays_dev, proj_matrix
 
 __all__ = ["LGMTrainState", "RefineDraws", "build_lgm_refine_step", "draw_refine_randoms"]
@@ -68,13 +70,16 @@ class RefineDraws:
 
 
 def draw_refine_randoms(generator: torch.Generator, latents: torch.Tensor, diffusion,
-                        n_input_views: int, n_supervise_extra: int) -> RefineDraws:
+                        n_input_views: int, n_supervise_extra: int,
+                        rows: Optional[int] = None) -> RefineDraws:
     """One step's draws from ``generator`` (which lives on the latents'
-    device or on the CPU)."""
+    device or on the CPU), for ``rows`` rows shaped like ``latents``
+    (default: its own rows)."""
     dev = generator.device
-    b, f = latents.shape[0], latents.shape[2]
+    b, f = (latents.shape[0] if rows is None else rows), latents.shape[2]
     t = torch.randint(0, diffusion.num_timesteps, (b,), generator=generator, device=dev)
-    noise = diffusion.sample_noise(latents.to(dev), generator)
+    noise = diffusion.sample_noise(latents.new_empty((b,) + tuple(latents.shape[1:]), device=dev),
+                                   generator)
     idxs = torch.randperm(f, generator=generator, device=dev)[:n_input_views]
     extra = torch.randperm(f, generator=generator, device=dev)[:n_supervise_extra]
     bg = torch.rand(3, generator=generator, device=dev)
@@ -101,6 +106,7 @@ def build_lgm_refine_step(
     lambda_lpips: float = 1.0,
     view_chunk: int = 0,
     autocast_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ):
     """Create ``refine_step(state, batch, generator=None, draws=None) ->
     (loss, aux)``, one LGM-finetune step. The frozen denoiser is called as
@@ -128,7 +134,15 @@ def build_lgm_refine_step(
     that many, each rematerialised in the backward pass; equal chunks make
     the mean of chunk means the global mean, so the loss is the unchunked
     one. ``autocast_dtype`` (bf16 on the card) runs the LGM's forward under
-    autocast over its fp32 parameters."""
+    autocast over its fp32 parameters.
+
+    ``mesh``: the 1-D data mesh for the data-parallel step. ``batch`` holds
+    this rank's rows; the draws (given or drawn) are the global batch's, of
+    which the rank keeps its t and noise rows, while the views, the
+    background and the dropout seed are the step's (the seed offset by the
+    rank, so the frozen UNet's masks differ across ranks). The LGM is
+    replicated: its gradients are averaged over the ranks, and the loss
+    returned is the global mean (``aux`` is of this rank's rows)."""
     proj = proj_matrix(fovy_deg, znear, zfar)
 
     def prepare(batch: Dict[str, torch.Tensor], draws: RefineDraws) -> Dict[str, torch.Tensor]:
@@ -235,6 +249,9 @@ def build_lgm_refine_step(
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return loss_from(prepare(batch, draws))
 
+    n = 1 if mesh is None else mesh.size()
+    r = 0 if mesh is None else mesh.get_local_rank()
+
     def refine_step(state: LGMTrainState, batch: Dict[str, torch.Tensor],
                     generator: Optional[torch.Generator] = None,
                     draws: Optional[RefineDraws] = None):
@@ -242,13 +259,22 @@ def build_lgm_refine_step(
             if generator is None:
                 raise ValueError("refine_step needs a generator or the step's draws")
             draws = draw_refine_randoms(generator, batch["latents"], diffusion, n_input_views,
-                                        n_supervise_extra)
+                                        n_supervise_extra, rows=n * batch["latents"].shape[0])
+        if n > 1:
+            k = draws.t.shape[0] // n
+            draws = dataclasses.replace(draws, t=draws.t[r * k:(r + 1) * k],
+                                        noise=draws.noise[r * k:(r + 1) * k],
+                                        dropout_seed=draws.dropout_seed + r)
         state.optimizer.zero_grad()
         loss, aux = loss_fn(batch, draws)
         loss.backward()
+        loss = loss.detach()
+        if n > 1:
+            sync_grads(state.lgm.parameters(), mesh.get_group(), n)
+            loss = all_reduce(loss.clone(), mesh.get_group()).div_(n)
         state.optimizer.step()
         state.step += 1
-        return loss.detach(), aux
+        return loss, aux
 
     refine_step.loss_fn = loss_fn
     refine_step.prepare = prepare

@@ -30,6 +30,12 @@ decay ``1 - (k+1)^-0.8``, per-tensor RMS clipping at 1, the update scaled by
 the learning rate and by the parameter's RMS (at least 1e-3), eps 1e-30.
 The gradient scale is applied as JAX applies it, before the optimizer:
 Adam normalises a constant scale away except through ``eps``.
+
+Under FSDP (``parallel.mesh.apply_fsdp``) a parameter is a ``DTensor`` of
+which this rank holds a shard; AdamW is elementwise and updates the shard
+it holds (its moments are shards too), and the global norm of the clip sums
+the shards' squares over the ranks. Adafactor's factored moments span the
+sharded axis, and it refuses sharded parameters.
 """
 
 from __future__ import annotations
@@ -42,9 +48,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 __all__ = ["Adafactor", "AdamW", "annealing_lr", "build_optimizer", "clip_by_global_norm_",
-           "scale_selected_grads", "sd_key_matcher"]
+           "local_tensor", "scale_selected_grads", "sd_key_matcher"]
 
 
 def annealing_lr(peak_lr: float, warmup_steps: int = 10, total_steps: int = 1_000_000,
@@ -113,11 +121,28 @@ def scale_selected_grads(grads: List[torch.Tensor], selected: Sequence[int],
         torch._foreach_mul_([grads[i] for i in selected], scale)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The part of ``t`` this rank holds: its shard of a ``DTensor``, else
+    ``t`` itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Sequence[bool] = (), group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: when the global L2 norm of
     all gradients reaches ``max_norm``, each becomes ``g / norm * max_norm``.
-    The test stays on the device (no host read). Returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    The test stays on the device (no host read). Returns the norm. Where
+    ``sharded[i]`` is true, ``grads[i]`` is this rank's shard of a gradient
+    split over ``group``, and the squares of the shards are summed over it."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if any(sharded):
+        sq = norms.square()
+        mask = torch.tensor(list(sharded), device=sq.device)
+        part = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+        dist.all_reduce(part, group=group)
+        norm = (part + torch.where(mask, torch.zeros_like(sq), sq).sum()).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     keep = norm < max_norm
     one = torch.ones((), device=norm.device, dtype=norm.dtype)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -140,6 +165,9 @@ class _Optimizer:
             if p.dtype != torch.float32:
                 raise ValueError(f"{type(self).__name__} keeps fp32 master parameters, "
                                  f"got {p.dtype}")
+        self.sharded = [isinstance(p, DTensor) for p in self.params]
+        self.group = next((p.device_mesh.get_group() for p in self.params
+                           if isinstance(p, DTensor)), None)
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.grad_scale = grad_scale
@@ -151,14 +179,20 @@ class _Optimizer:
         for p in self.params:
             p.grad = None
 
+    def _tensors(self) -> List[torch.Tensor]:
+        """The parameters as this rank holds them (shards under FSDP), read
+        anew each step: FSDP may rebind a shard's tensor after the first
+        forward."""
+        return [local_tensor(p) for p in self.params]
+
     def _grads(self) -> List[torch.Tensor]:
-        """The fp32 gradients after clipping and the key scale. A parameter
-        the loss did not reach (no ``.grad``; the camera MLP in an image
-        step) has a zero gradient, as in JAX."""
-        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        """The fp32 gradients after clipping and the key scale (this rank's
+        shards under FSDP). A parameter the loss did not reach (no ``.grad``;
+        the camera MLP in an image step) has a zero gradient, as in JAX."""
+        grads = [local_tensor(p.grad).float() if p.grad is not None
+                 else torch.zeros_like(local_tensor(p)) for p in self.params]
         if self.grad_clip:
-            clip_by_global_norm_(grads, self.grad_clip)
+            clip_by_global_norm_(grads, self.grad_clip, self.sharded, self.group)
         if self.grad_scale is not None:
             scale_selected_grads(grads, self.scaled, self.grad_scale)
         return grads
@@ -186,13 +220,16 @@ class AdamW(_Optimizer):
         super().__init__(params, schedule, **transforms)
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps, self.weight_decay = float(eps), float(weight_decay)
-        self.mu = [torch.zeros_like(p, dtype=torch.bfloat16) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        with torch.no_grad():
+            local = self._tensors()
+        self.mu = [torch.zeros_like(p, dtype=torch.bfloat16) for p in local]
+        self.nu = [torch.zeros_like(p) for p in local]
 
     @torch.no_grad()
     def step(self) -> float:
         """One update from the parameters' ``.grad``; returns the learning
         rate it used."""
+        params = self._tensors()
         grads = self._grads()
         lr = self.schedule(self.count)
         self.count += 1
@@ -210,8 +247,8 @@ class AdamW(_Optimizer):
         update = torch._foreach_div(mu32, bc1)
         torch._foreach_div_(update, denom)
         if self.weight_decay:
-            torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-lr)
+            torch._foreach_add_(update, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, update, alpha=-lr)
         torch._foreach_copy_(self.mu, mu32)
         return lr
 
@@ -240,6 +277,9 @@ class Adafactor(_Optimizer):
 
     def __init__(self, params, schedule: Callable[[int], float], **transforms):
         super().__init__(params, schedule, **transforms)
+        if any(self.sharded):
+            raise NotImplementedError("Adafactor over FSDP-sharded parameters: its factored "
+                                      "moments span the sharded axis; use AdamW")
         self.dims = [self._factored_dims(p.shape) for p in self.params]
         self.v_row, self.v_col, self.v = [], [], []
         for p, d in zip(self.params, self.dims):
