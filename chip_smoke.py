@@ -95,7 +95,8 @@ Phases (each prints its lines; a failed phase exits non-zero):
      then under torch.distributed at world size 1 on NCCL, replicated (the
      data-parallel step; loss bit-equal) and FSDP-sharded, each held to the
      plain step's loss and gradient with kernel 1's twenty launches by shape
-     and its peak memory, then one AdamW step of the sharded state;
+     and its peak memory, then one AdamW step of the sharded state and one
+     Adafactor step of it, held to the plain Adafactor on the same gradient;
  13. batched_serving: generate_batch(force_batched=True) of two prompts at
      the shipped T2V geometry, plain and refined, each row against a
      single-prompt request fed its noise row (first CFG forward, final
@@ -106,7 +107,20 @@ Phases (each prints its lines; a failed phase exits non-zero):
      frame-parallel plain T2V request (sp = 2, MULTIRANK_STEPS DDIM steps)
      against one rank, and one data-parallel finetune step at global batch 2
      against dist_train's loss; the ranks take their weights from files the
-     phase writes (it needs dist_train in the same run).
+     phase writes (it needs dist_train in the same run);
+ 15. variants: slice F at full width. The T2V finetune step of
+     configs/t2v_train.yaml at batch 2 under remat_policy full, dots_no_batch
+     and dots (the step by parts, its peak memory, the loss bit-equal to
+     full's, the gradient's cosine to full's); over the served T2V UNet at 24
+     views PLMS (20 steps, CFG 9.0), DDIM inversion of a plain request's
+     latents and DDIM back (20 steps each, the cond rows), DDPM over linear_sd
+     cut to 50 steps (CFG 9.0), each with its first prediction bf16 vs fp32;
+     the UNet with temporal_block rotary (temporal_attn_times 2, use_sim_mask)
+     and attemask, seeded from the T2V draw where they share tensors: a
+     48-row forward bf16 vs fp32 plain on the card (rotary also with a
+     video_mask and a focus_present_mask), then one 50-step request each
+     through T2VPipeline. Every path's launches by shape are derived from the
+     block plan and must be shapes the kernels phase checks.
 Every model is seeded through one cache of draws (``_SeededWeights``): each
 (module layout, seed) is drawn once on the host by the program's
 ``init_weights``, and the later phases' trainers and CLIs copy it.
@@ -407,8 +421,21 @@ SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
                           for p in ("packed", "fp32"))
 # kernel 4's two variants: the same report
 SPLAT_BWD_KERNELS = ("splat_composite_bwd_culled_kernel", "splat_composite_bwd_kernel")
+# slice F (the variants phase): the two temporal variants as their YAML keys
+# select them, the samplers' steps (DDPM's linear_sd cut from 1000 steps for
+# the clock), the remat policies held to full's gradient, and each new path's
+# launches by shape (filled by the phase, printed in the JSON line)
+VARIANT_OPTS = {"rotary": ["UNet.temporal_block", "rotary", "UNet.use_sim_mask", "True",
+                           "UNet.temporal_attn_times", "2"],
+                "attemask": ["UNet.temporal_block", "attemask"]}
+VARIANT_SEED = 21
+SAMPLER_STEPS, DDPM_STEPS = 20, 50
+REMAT_POLICIES = ("full", "dots_no_batch", "dots")
+REMAT_MIN_COS = 0.99999
+ADAFACTOR_PARAM_TOL = 1e-6
+VARIANT_CALLS = {}
 PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train",
-          "unet_train", "i2v_train", "dist_train", "batched_serving", "multirank")
+          "unet_train", "i2v_train", "dist_train", "batched_serving", "multirank", "variants")
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
@@ -1496,6 +1523,8 @@ def main(argv=None):
         t0 = time.time()
         by_path[slice_e[4]] = phase_multirank(torch)
         say("multirank", f"phase {time.time() - t0:.1f}s")
+    if "variants" in phases:
+        by_path.update(phase_variants(torch))
     say("env", f"seeded weights: {seeded.drawn_s:.1f} s drawing on the host (each model once, "
         f"summed over the threads that draw at once), {seeded.copied_s:.1f} s copying them "
         f"onto their devices; the whole run {time.time() - run_t0:.1f} s; {CLOCKS_QUERY}: "
@@ -1510,6 +1539,10 @@ def main(argv=None):
     # is the count read after that path ran (null unless its phase ran).
     record = []
     for name, runs in kernel_results.items():
+        for r in runs:  # slice F's paths (the variants phase), by shape
+            if name in ("flash_attention", "geglu_ffn"):
+                r["calls_by_slice_f_path"] = {path: shapes.get(name, {}).get(tuple(r["shape"]), 0)
+                                              for path, shapes in VARIANT_CALLS.items()}
         if name == "geglu_ffn":
             path, calls, times = "refined request", "calls_per_request", 1
         elif name == "fused_spatial":
@@ -3579,6 +3612,24 @@ class _GradCapture:
         self.flat = flat if self.keep else None
 
 
+class _KeepGrads:
+    """Steps ``opt`` and keeps the whole gradient (FSDP shards gathered) it
+    stepped on, by parameter."""
+
+    def __init__(self, opt, unet):
+        self.opt, self.unet, self.grads = opt, unet, None
+
+    def zero_grad(self):
+        self.opt.zero_grad()
+
+    def step(self):
+        from torch.distributed.tensor import DTensor
+
+        self.grads = [(p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad).clone()
+                      for p in self.unet.parameters()]
+        return self.opt.step()
+
+
 def _grad_agreement(torch, got, ref):
     """(cosine, norm ratio) of two flattened gradients."""
     cos = (torch.dot(got, ref) / (got.norm() * ref.norm())).item()
@@ -3728,9 +3779,46 @@ def phase_dist_train(torch):
             f"parameter moved {moved}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if not (moved and math.isfinite(loss.item())):
             fail("dist_train", "the sharded AdamW step did not move the parameters")
+        del opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one Adafactor step of the sharded state against the plain Adafactor
+        # on the same parameters and gradient
+        def whole(p):
+            return (p.full_tensor() if isinstance(p, DTensor) else p).detach().clone()
+
+        kw = dict(lr=1e-3, warmup_steps=0, optimizer="adafactor")
+        before = [whole(p) for p in unet.parameters()]
+        keep = _KeepGrads(build_optimizer(unet.named_parameters(), **kw), unet)
+        torch.cuda.reset_peak_memory_stats()
+        loss = build(mesh)(TrainState(0, unet, keep), feats, draws=draws)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain = [(n, torch.nn.Parameter(b.clone()))
+                 for (n, _), b in zip(unet.named_parameters(), before)]
+        for (_, q), g in zip(plain, keep.grads):
+            q.grad = g
+        build_optimizer(plain, **kw).step()
+        # stacked, so that a non-finite entry shows
+        err = torch.stack([(whole(p) - q).abs().max() / q.abs().max().clamp_min(1e-30)
+                           for p, (_, q) in zip(unet.parameters(), plain)]).max().item()
+        moved = torch.stack([(whole(p) - b).abs().max()
+                             for p, b in zip(unet.parameters(), before)]).max().item()
+        bad = [sum(not bool(torch.isfinite(t).all()) for t in ts)
+               for ts in (keep.grads, [whole(p) for p in unet.parameters()])]
+        zero = sum(not bool(g.any()) for g in keep.grads)
+        say("dist_train", f"one Adafactor step of the sharded state: loss {loss.item():.6f}, "
+            f"parameters against the plain Adafactor on the same gradient max|d|/max|ref| "
+            f"{err:.3e} (bound {ADAFACTOR_PARAM_TOL:.0e}), largest move {moved:.3e}, "
+            f"non-finite gradients / parameters {bad}, all-zero gradients {zero} of "
+            f"{len(keep.grads)}, peak {peak:.2f} GiB")
+        if not (err <= ADAFACTOR_PARAM_TOL and moved > 0):
+            fail("dist_train", "the sharded Adafactor step disagrees with the plain one")
+        del before, keep, plain
     finally:
         dist.destroy_process_group()
-    del trainer, unet, feats, opt
+    del trainer, unet, feats
     gc.collect()
     torch.cuda.empty_cache()
     return counts_dp, counts_fsdp
@@ -4032,6 +4120,442 @@ def phase_multirank(torch):
     for f in (MULTIRANK_SERVE, MULTIRANK_TRAIN):
         os.remove(f)
     return res[0]["counts"]
+
+
+
+# ------------------------------------------------------------------ variants
+# Slice F: the dormant temporal variants of the T2V UNet, the samplers no
+# served path calls, the `dots` remat policies and Adafactor over FSDP.
+
+
+def _plan_launches(kw, rows, hw, forwards=1):
+    """Kernels 1 and 2's launches by shape in ``forwards`` forwards of the
+    UNet of ``kw`` (``unet_kwargs_from_cfg``) over ``rows`` rows of hw x hw
+    latents, derived from its block plan and the two kernels' gates: each
+    spatial transformer's self-attention and FFN, and the FFN of each
+    temporal transformer (``transformer`` or ``attemask``; the rotary blocks
+    have none)."""
+    import torch
+
+    from videomv_tpu_torch.models.unet_t2v import build_unet_plan
+    from videomv_tpu_torch.ops import attention_eligible, ffn_eligible
+
+    bf, hd = torch.bfloat16, kw["head_dim"]
+    out = {"flash_attention": {}, "geglu_ffn": {}}
+
+    def add(name, shape):
+        out[name][shape] = out[name].get(shape, 0) + forwards
+
+    def visit(kind, name, cout, side):
+        s = side * side
+        if kind == "spatial":
+            q = (rows, s, cout // hd, hd)
+            if attention_eligible(q, q, bf, True):
+                add("flash_attention", q)
+            inner = cout
+        elif kind == "temporal" and kw["temporal_block"] != "rotary":
+            inner = (kw["num_heads"] if name == "input_blocks_0_1" else cout // hd) * hd
+        else:
+            return
+        if ffn_eligible(rows * s, inner, 4 * inner, bf, True):
+            add("geglu_ffn", (rows * s, inner, 4 * inner))
+
+    enc, dec = build_unet_plan(kw["dim"], kw["dim_mult"], kw["num_res_blocks"],
+                               kw["attn_scales"], kw["temporal_attention"])
+    side = hw
+    for entry in enc:
+        for kind, name, _, cout in entry:
+            visit(kind, name, cout, side)
+            if kind == "down":
+                side //= 2
+    mid = kw["dim"] * kw["dim_mult"][-1]
+    visit("spatial", "middle_block_1", mid, side)
+    if kw["temporal_attention"]:
+        visit("temporal", "middle_block_2", mid, side)
+    for entry in dec:
+        for kind, name, _, cout in entry:
+            visit(kind, name, cout, side)
+            if kind == "up":
+                side *= 2
+    return out
+
+
+def _checked_shapes():
+    """Kernels 1 and 2's shapes the kernels phase holds against their twins."""
+    return {"flash_attention": {*ATTN_SHAPES, *BATCHED_REFINED_BY_SHAPE["flash_attention"],
+                                *(s for rows in UNET_TRAIN_CHECK_ROWS
+                                  for s in unet_train_attn_shapes(rows))},
+            "geglu_ffn": {*FFN_SHAPES, *BATCHED_REFINED_BY_SHAPE["geglu_ffn"]}}
+
+
+def _launched(torch, phase, what, want=None):
+    """The launch counts since the last reset by shape: every shape one the
+    kernels phase checks, and (with ``want``) the counts expected."""
+    from videomv_tpu_torch import ops
+
+    counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
+    checked = _checked_shapes()
+    for name in ("flash_attention", "geglu_ffn"):
+        new = set(shapes[name]) - checked[name]
+        if new:
+            fail(phase, f"{what}: {name} launched at shapes the kernels phase does not check: "
+                 f"{sorted(new)}")
+    if counts["fused_spatial"] or counts["splat_composite"] or counts["splat_composite_bwd"]:
+        fail(phase, f"{what}: unexpected launches {counts}")
+    if want is not None and {k: shapes[k] for k in want} != want:
+        fail(phase, f"{what}: expected launches by shape {want}, got {shapes}")
+    return counts, {k: dict(v) for k, v in shapes.items()}
+
+
+def _variant_host_unet(torch, opts):
+    """The full-width UNet of configs/t2v_infer.yaml with ``opts``, fp32 on
+    the host: every tensor it shares (name and shape) with the cached T2V
+    draw (``_host_unet``) is that draw's; the rest (the rotary blocks, the
+    relative position bias) is drawn from VARIANT_SEED as init_weights draws
+    (zero_init False). Returns the UNet, its kwargs and how many tensors
+    were drawn."""
+    import numpy as np
+
+    from videomv_tpu_torch.config import load_inference_config
+    from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
+    from videomv_tpu_torch.models import UNetSD_T2VBase
+
+    cfg = load_inference_config(os.path.join(ROOT, "configs", "t2v_infer.yaml"), opts=opts)
+    kw = unet_kwargs_from_cfg(cfg.UNet)
+    with torch.device("meta"):
+        unet = UNetSD_T2VBase(**kw)
+    unet.to_empty(device="cpu")
+    shared = dict(_host_unet(torch).named_parameters())
+    rng, drawn = np.random.default_rng(VARIANT_SEED), 0
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name in shared and shared[name].shape == p.shape:
+                p.copy_(shared[name])
+                continue
+            n = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+            if n.ndim >= 2:
+                n *= np.float32(math.prod(n.shape[1:]) ** -0.5)
+            elif name.endswith("weight"):
+                n = np.float32(1.0) + np.float32(0.1) * n
+            else:
+                n *= np.float32(0.1)
+            p.copy_(torch.from_numpy(n))
+            drawn += 1
+    return unet.eval().requires_grad_(False), kw, drawn, cfg
+
+
+def _cfg_model(torch, unet, y, zero_y, cam, rows=None):
+    """The served CFG denoiser over ``unet``: [cond; uncond] rows in one
+    forward (``rows`` None), or the cond rows alone (``rows='cond'``)."""
+    if rows == "cond":
+        return lambda xt, t: unet(xt, t, y=y, camera_data=cam)
+
+    def model(xt, t):
+        out = unet(torch.cat([xt, xt]), torch.cat([t, t]), y=torch.cat([y, zero_y]),
+                   camera_data=torch.cat([cam, cam]))
+        return out[:1], out[1:]
+    return model
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _first_prediction(torch, model_bf16, model_fp32, x, t, guide):
+    """One sampler's first forward, bf16 with the kernels against fp32
+    plain, both on the card: max|d|/max|ref| of the UNet's output (its CFG
+    rows), held to UNET_REL_TOL as every forward is (PERF.md §2), and of the
+    guided prediction, which amplifies the rows' difference by the guidance
+    (printed)."""
+    with torch.no_grad():
+        outs = [model(x, t) for model in (model_bf16, model_fp32)]
+    if guide is None:
+        rel = _rel(outs[0], outs[1])
+        return rel, rel
+    rows = _rel(torch.cat(outs[0]), torch.cat(outs[1]))
+    mixed = [o[1] + guide * (o[0] - o[1]) for o in outs]
+    return rows, _rel(mixed[0], mixed[1])
+
+
+def _remat_policies(torch):
+    """configs/t2v_train.yaml's UNet finetune step at batch 2 under each
+    remat policy on one batch, one set of draws and one dropout stream: the
+    step by parts (CUDA events; the second of two runs), its peak memory,
+    kernel 1's launches by shape, the loss (bit-equal to full's) and the
+    gradient (cosine to full's)."""
+    import gc
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.data.datasets import SyntheticMVDataset, batch_iterator
+    from videomv_tpu_torch.parallel import draw_train_randoms
+    from videomv_tpu_torch.parallel.train_step import _dropout_stream
+    from videomv_tpu_torch.training.engine import T2VTrainer
+
+    os.chdir(ROOT)
+    cfg = load_config("configs/t2v_train.yaml", opts=UNET_TRAIN_OPTS)
+    trainer = T2VTrainer(cfg, device="cuda").init(zero_init=False)
+    unet, dev = trainer.unet, trainer.device
+    if not unet.use_checkpoint:
+        fail("variants", "configs/t2v_train.yaml no longer sets use_checkpoint")
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames),
+                               UNET_TRAIN_BATCH))
+    with torch.no_grad():
+        feats = trainer.encode_batch(host)
+    draws = draw_train_randoms(torch.Generator(device=dev).manual_seed(5), feats["latents"],
+                               trainer.diffusion, float(cfg.get("p_zero", 0.1)))
+    want = {"flash_attention": unet_train_attn_shapes(UNET_TRAIN_BATCH * UNET_TRAIN_VIEWS),
+            "geglu_ffn": {}}
+    ref_loss = ref_grad = None
+    out = {}
+    for policy in REMAT_POLICIES:
+        unet.remat_policy = policy
+        for _ in range(2):
+            for p in unet.parameters():
+                p.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            timers = _EventTimers(torch)
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            with _dropout_stream(torch.Generator(device=dev).manual_seed(7)):
+                with timers("forward"):
+                    loss = trainer.train_step.loss_fn(feats, draws)
+                with timers("backward (recompute + gradients)"):
+                    loss.backward()
+            ms = timers.ms()
+            wall = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+        counts, shapes = _launched(torch, "variants", f"remat {policy} step", want)
+        grad = _flat_grad(torch, unet)
+        if ref_grad is None:
+            ref_loss, ref_grad, cos = loss.item(), grad, 1.0
+        else:
+            cos = _grad_agreement(torch, grad, ref_grad)[0]
+        say("variants", f"remat_policy {policy}: loss {loss.item()!r} (full's {ref_loss!r}, "
+            f"bit-equal {loss.item() == ref_loss}), gradient cosine to full's {cos:.8f} "
+            f"(bound {REMAT_MIN_COS}); peak {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} "
+            f"GiB above the resident state; CUDA events " + "; ".join(
+                f"{k} {v:.2f} ms" for k, v in ms.items())
+            + f"; host wall {wall:.2f} ms; launches {counts}, attention by shape "
+            f"{shapes['flash_attention']}")
+        if loss.item() != ref_loss or not cos >= REMAT_MIN_COS:
+            fail("variants", f"remat_policy {policy} changed the step's loss or gradient")
+        out[f"remat {policy} step"] = (counts, shapes)
+        del grad, loss
+    unet.remat_policy = "full"
+    del trainer, unet, feats, ref_grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _samplers(torch, host_fp32):
+    """PLMS, DDIM inversion (and DDIM back) and DDPM over the served T2V
+    UNet (configs/t2v_infer.yaml, bf16 with the kernels) at 24 views: each
+    one's latency, launches by shape (derived from the block plan), finite
+    latents and its first step's prediction bf16 vs fp32 on the card."""
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.diffusion import (
+        GaussianDiffusion,
+        ddim_reverse_sample_loop,
+        ddim_sample_loop,
+        ddim_timestep_seq,
+        ddpm_sample_loop,
+        plms_sample_loop,
+    )
+    from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
+
+    pipe = _pipeline(torch)
+    kw = unet_kwargs_from_cfg(pipe.cfg.UNet)
+    f, (h, w) = pipe.max_frames, pipe.latent_hw
+    with open(pipe.cfg.test_list_path) as fh:
+        prompt = next(ln.strip() for ln in fh if ln.strip())
+    y, zero_y = pipe.encode_text([prompt]), pipe._negative()
+    cam = pipe._get_cameras(15.0, 2.0)[0]
+    guided = _cfg_model(torch, pipe.unet, y, zero_y, cam)
+    guided32 = _cfg_model(torch, host_fp32, y, zero_y, cam)
+    cond = _cfg_model(torch, pipe.unet, y, zero_y, cam, rows="cond")
+    cond32 = _cfg_model(torch, host_fp32, y, zero_y, cam, rows="cond")
+    d = pipe.diffusion
+    T = d.num_timesteps
+    noise = pipe._noise(1, seed=31)
+    paths = {}
+
+    def run(name, fn, forwards, rows, first_step):
+        want = _plan_launches(kw, rows, h, forwards)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        lat = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts, shapes = _launched(torch, "variants", name, want)
+        finite = bool(torch.isfinite(lat).all())
+        first, guided_first = first_step
+        say("variants", f"{name}: {dt:.3f} s ({forwards} forwards of {rows} rows, "
+            f"{1e3 * dt / forwards:.2f} ms a forward), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, latents finite {finite}, first "
+            f"forward bf16 vs fp32 max|d|/max|ref| {first:.3e} (bound {UNET_REL_TOL:.0e}; the "
+            f"guided prediction {guided_first:.3e}); launches {counts}, by shape {shapes}")
+        if not finite or not first <= UNET_REL_TOL:
+            fail("variants", f"{name}: non-finite latents or its first step off fp32")
+        paths[name] = (counts, shapes)
+        return lat, dt
+
+    steps = SAMPLER_STEPS
+    t0 = torch.full((1,), int(ddim_timestep_seq(T, steps)[0]), device=noise.device)
+    with torch.no_grad():
+        first = _first_prediction(torch, guided, guided32, noise, t0, 9.0)
+        run(f"PLMS, {steps} steps, CFG 9.0", lambda: plms_sample_loop(
+            d, guided, noise, plms_timesteps=steps, guide_scale=9.0), steps + 1, 2 * f, first)
+
+        x0 = pipe.generate(prompt, steps=50, guide_scale=9.0, seed=11)["latents"]
+        x0 = torch.from_numpy(x0).to(noise.device)
+        zero_t = torch.zeros(1, dtype=torch.long, device=noise.device)
+        first = _first_prediction(torch, cond, cond32, x0, zero_t, None)
+        xt, _ = run(f"DDIM inversion, {steps} steps, cond rows (a plain request's latents)",
+                    lambda: ddim_reverse_sample_loop(d, cond, x0, ddim_timesteps=steps),
+                    steps, f, first)
+        first = _first_prediction(torch, cond, cond32, xt, t0, None)
+        back, _ = run(f"DDIM back, {steps} steps, cond rows", lambda: ddim_sample_loop(
+            d, cond, xt, ddim_timesteps=steps), steps, f, first)
+        rl2 = ((back - x0).norm() / x0.norm()).item()
+        say("variants", f"DDIM inversion round trip: |x0' - x0| / |x0| {rl2:.4e} (reported; "
+            f"DDIM's 20-step map is not exactly invertible)")
+
+        dcfg = dict(pipe.cfg.Diffusion)
+        dcfg.pop("type", None)
+        dcfg["schedule_param"] = dict(dcfg.get("schedule_param", {}), num_timesteps=DDPM_STEPS)
+        d50 = GaussianDiffusion(**dcfg)
+        first = _first_prediction(torch, guided, guided32, noise,
+                                  torch.full((1,), DDPM_STEPS - 1, device=noise.device), 9.0)
+        gen = torch.Generator(device=noise.device).manual_seed(3)
+        _, dt = run(f"DDPM over {dcfg['schedule']}, num_timesteps cut to {DDPM_STEPS} (shipped "
+                    f"{T}), CFG 9.0", lambda: ddpm_sample_loop(
+                        d50, guided, noise, guide_scale=9.0, generator=gen),
+                    DDPM_STEPS, 2 * f, first)
+        say("variants", f"DDPM: {1e3 * dt / DDPM_STEPS:.2f} ms a step; at the shipped {T} steps "
+            f"{dt / DDPM_STEPS * T:.1f} s a request (estimated from the cut run)")
+    return paths
+
+
+def _variant_unets(torch):
+    """The rotary and attemask UNets at full width: a 48-row forward bf16
+    with the kernels against the fp32 plain path on the card (the rotary one
+    also with a video_mask that drops two views and a focus_present_mask
+    row), then one 50-step CFG request through T2VPipeline built from the
+    merged config, with launches by shape derived from the block plan."""
+    import gc
+
+    import numpy as np
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.data.cameras import orbit_camera_for_t2v
+    from videomv_tpu_torch.inference import T2VPipeline
+
+    base = _pipeline(torch)
+    paths = {}
+    for block, opts in VARIANT_OPTS.items():
+        t1 = time.time()
+        host, kw, drawn, cfg = _variant_host_unet(torch, opts)
+        vpipe = T2VPipeline(cfg, device="cuda")
+        vpipe.vae, vpipe.clip, vpipe.lgm = base.vae, base.clip, None
+        vpipe.load_state_dicts(unet=host.state_dict())
+        card32 = host.to("cuda")
+        say("variants", f"{block} UNet (temporal_block {kw['temporal_block']}, "
+            f"temporal_attn_times {kw['temporal_attn_times']}, use_sim_mask "
+            f"{kw['use_sim_mask']}): {sum(p.numel() for p in card32.parameters()) / 1e9:.4f} B "
+            f"parameters, {drawn} tensors drawn (the rest the T2V draw's), built in "
+            f"{time.time() - t1:.1f}s")
+        f = vpipe.max_frames
+        rs = np.random.default_rng(1)
+        x = torch.from_numpy(rs.standard_normal((1, 4, f, 32, 32)).astype(np.float32)).cuda()
+        y = torch.from_numpy(rs.standard_normal((2, 77, 1024)).astype(np.float32)).cuda()
+        cam = torch.from_numpy(np.asarray(orbit_camera_for_t2v(f))).cuda()
+        args = (torch.cat([x, x]), torch.tensor([981, 981], device="cuda"))
+        vm = torch.ones(2, f, dtype=torch.bool, device="cuda")
+        vm[:, 5], vm[:, 17] = False, False
+        fpm = torch.tensor([True, False], device="cuda")
+        cases = {"no mask": {}}
+        if block == "rotary":
+            cases.update({"video_mask (views 5 and 17 dropped)": dict(video_mask=vm),
+                          "focus_present_mask (row 0)": dict(focus_present_mask=fpm)})
+        want = _plan_launches(kw, 2 * f, 32)
+        for what, masks in cases.items():
+            with torch.no_grad():
+                ops.reset_launch_counts()
+                got = vpipe.unet(*args, y=y, camera_data=torch.cat([cam, cam]), **masks)
+                torch.cuda.synchronize()
+                _launched(torch, "variants", f"{block} forward", want)
+                ref = card32(*args, y=y, camera_data=torch.cat([cam, cam]), **masks)
+            rel = _rel(got, ref)
+            say("variants", f"{block} forward, 48 rows, {what}: bf16 with the kernels vs fp32 "
+                f"plain on the card max|d|/max|ref| {rel:.3e} (bound {UNET_REL_TOL:.0e}), "
+                f"max|ref| {ref.abs().max().item():.3e}, finite {bool(torch.isfinite(got).all())}")
+            if not (torch.isfinite(got).all() and rel <= UNET_REL_TOL):
+                fail("variants", f"{block} forward ({what}) off its fp32 reference")
+        del card32, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(base.cfg.test_list_path) as fh:
+            prompt = next(ln.strip() for ln in fh if ln.strip())
+        want = _plan_launches(kw, 2 * f, 32, forwards=50)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = vpipe.generate(prompt, steps=50, guide_scale=9.0, seed=11)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts, shapes = _launched(torch, "variants", f"{block} request", want)
+        fr = out["frames"]
+        say("variants", f"{block} request (50 steps, CFG 9.0, 24 views): {dt:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, frames {fr.dtype} "
+            f"{list(fr.shape)}, launches {counts}, by shape {shapes} (the block plan's)")
+        if fr.shape != (24, 256, 256, 3) or not np.isfinite(out["latents"]).all():
+            fail("variants", f"{block} request: frames {fr.shape} or non-finite latents")
+        paths[f"{block} request"] = (counts, shapes)
+        del vpipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_variants(torch):
+    """Slice F at full width: the remat policies on the T2V finetune step,
+    the samplers over the served T2V UNet, the rotary and attemask UNets.
+    Records each path's launches by shape in VARIANT_CALLS and returns the
+    launch counts by path."""
+    import copy
+    import gc
+
+    t0 = time.time()
+    # the plan's launches of a T2V CFG forward are what the slice counts
+    from videomv_tpu_torch.config import load_inference_config
+    from videomv_tpu_torch.inference.pipeline import unet_kwargs_from_cfg
+
+    kw = unet_kwargs_from_cfg(load_inference_config(
+        os.path.join(ROOT, "configs", "t2v_infer.yaml")).UNet)
+    served = {k: {s: c // 50 for s, c in v.items()} for k, v in PLAIN_BY_SHAPE.items()}
+    if _plan_launches(kw, 48, 32) != served:
+        fail("variants", f"the block plan's launches {_plan_launches(kw, 48, 32)} are not a "
+             f"served forward's {served}")
+    paths = _remat_policies(torch)
+    host32 = copy.deepcopy(_host_unet(torch)).to("cuda")
+    paths.update(_samplers(torch, host32))
+    del host32
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(_variant_unets(torch))
+    VARIANT_CALLS.update({path: shapes for path, (_, shapes) in paths.items()})
+    say("variants", f"phase {time.time() - t0:.1f}s")
+    return {path: counts for path, (counts, _) in paths.items()}
 
 
 if __name__ == "__main__":

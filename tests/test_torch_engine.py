@@ -328,3 +328,27 @@ def test_plain_training_cli_on_cpu(small_towers, tmp_path):
     loss = main(["--cfg", UNET_CFG, "--steps", "2", "--device", "cpu", *UNET_SMALL, "log_dir",
                  str(tmp_path)])
     assert np.isfinite(loss) and loss > 0
+
+
+def test_fsdp_visualisation_writes_and_matches_the_unsharded_one(tmp_path):
+    """``viz_interval`` under ``param_sharding: fsdp`` at world 2 (gloo
+    ranks): every rank samples, rank 0 writes, and its frames are the
+    replicated trainer's; the EMA weights are copied into the shards for it
+    and back; the training loop runs the hook on every rank."""
+    import torch_parallel_ranks as ranks
+    from videomv_tpu_torch.parallel import spawn
+
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("a chair\n")
+    got = spawn(ranks.fsdp_viz, 2, init_file=str(tmp_path / "rdv"), deadline_s=240,
+                args=(str(tmp_path / "log"), str(prompts)))
+    zero, one = got
+    assert zero["fsdp"]["sampled"] and one["fsdp"]["sampled"]
+    assert zero["replicated"]["sampled"] and not one["replicated"]["sampled"]
+    assert zero["fsdp"]["path"] and os.path.exists(zero["fsdp"]["path"])
+    assert one["fsdp"]["path"] is None and one["fsdp"]["frames"] is None
+    a, b = zero["fsdp"]["frames"], zero["replicated"]["frames"]
+    assert len(a) == len(b) == 1 and a[0].shape == b[0].shape == (4, 64, 64, 3)
+    assert np.abs(a[0].astype(np.float64) - b[0]).max() / 255.0 <= 1e-5
+    assert all(r["ema_swapped"] and r["ema_restored"] for r in got)
+    assert any(n.startswith("viz_step_00000001") for n in zero["loop_wrote"])

@@ -30,6 +30,7 @@ IMPORTS = (
     "videomv_tpu_torch.data.recenter", "videomv_tpu_torch.parallel.mesh",
     "videomv_tpu_torch.parallel.collectives", "videomv_tpu_torch.parallel.infer",
     "videomv_tpu_torch.parallel.tp", "videomv_tpu_torch.parallel.dryrun",
+    "videomv_tpu_torch.utils.profiling",
 )
 
 

@@ -265,3 +265,59 @@ def test_sd_key_matcher_marks_the_jax_matchers_set():
     with open(SD_KEYS) as f:
         listed = json.load(f)
     assert all(k in listed or k.replace(".bias", ".weight") in listed for k in got)
+
+
+# ------------------------------------------------ Adafactor over FSDP shards
+
+# shapes whose axis 0 is the largest (its mean over axis 0 spans the
+# shards), the second largest (row_col_mean spans them; a 2-D and a 4-D
+# kernel), neither, unfactored, and row counts that do not divide by 2 or 3
+SHARDED_SHAPES = {"a": (161, 130), "b": (130, 200), "c": (5, 144, 130), "d": (7, 5),
+                  "e": (128, 144, 3, 3), "f": (11,)}
+ADAFACTOR_KW = dict(lr=1e-2, warmup_steps=1, total_steps=100, optimizer="adafactor")
+
+
+@pytest.fixture(scope="module")
+def sharded_adafactor(tmp_path_factory):
+    import torch_parallel_ranks as ranks
+    from videomv_tpu_torch.parallel import spawn
+
+    rs = np.random.default_rng(71)
+    params = {k: (rs.standard_normal(s) * 0.1).astype(np.float32)
+              for k, s in SHARDED_SHAPES.items()}
+    grads = [{k: (rs.standard_normal(s) * 10.0 ** rs.integers(-3, 1)).astype(np.float32)
+              for k, s in SHARDED_SHAPES.items()} for _ in range(2)]
+    tmp = tmp_path_factory.mktemp("rdv")
+    got = {n: spawn(ranks.adafactor_shards, n, init_file=str(tmp / f"w{n}"), deadline_s=240,
+                    args=(params, grads, ADAFACTOR_KW)) for n in (2, 3)}
+    tparams = [(k, torch.nn.Parameter(torch.from_numpy(v.copy()))) for k, v in params.items()]
+    opt = build_optimizer(tparams, **ADAFACTOR_KW)
+    for g in grads:
+        for k, p in tparams:
+            p.grad = torch.from_numpy(g[k].copy())
+        opt.step()
+    return got, {k: p.detach().numpy() for k, p in tparams}, opt
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_adafactor_matches_the_whole_one(sharded_adafactor, world):
+    """Two steps over shards (world 2 and 3, uneven rows) against the port's
+    unsharded Adafactor, itself held to optax above: parameters and the
+    gathered state within 1e-6 of the largest entry."""
+    got, want, opt = sharded_adafactor
+    whole = opt.state_dict()
+    assert opt.dims == [Adafactor._factored_dims(s) for s in SHARDED_SHAPES.values()]
+    for r in got[world]:
+        assert r["sharded"] == len(SHARDED_SHAPES)
+        for k, w in want.items():
+            assert np.abs(r["params"][k] - w).max() <= 1e-6 * np.abs(w).max(), k
+        assert r["state"]["count"] == whole["count"] == 2
+        for key in ("v_row", "v_col", "v"):
+            for a, b in zip(r["state"][key], whole[key]):
+                assert a.shape == tuple(b.shape)
+                np.testing.assert_allclose(a, b.numpy(), rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_adafactor_state_round_trips(sharded_adafactor, world):
+    assert all(r["restored_equal"] for r in sharded_adafactor[0][world])

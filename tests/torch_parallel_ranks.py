@@ -372,3 +372,140 @@ def inference_cli(rank, n, log_dir):
                     "sampling_dtype", "float32", "log_dir", log_dir, "UNet.context_dim", "64",
                     "ddim_timesteps", "3", "frame_parallel", "True"])
     return {"written": written, "exists": [os.path.exists(p) for p in written]}
+
+
+# ------------------------------------------------------- temporal variants
+
+
+def variant_forwards(rank, n, jobs, inputs):
+    """Each job's tiny UNet forward on this rank's frames: ``jobs`` are
+    dicts of the UNet's kwargs (``kw``), its state dict (``sd``), the
+    ``tp`` degree (the mesh is ``('sp', 'tp')`` with sp = n / tp) and
+    whether the rotary masks go in (``masks``). Returns every frame's output
+    (gathered over sp) and, for tp > 1, the placement ``tp_shardings``
+    gave the UNet."""
+    from videomv_tpu_torch.models import UNetSD_T2VBase
+    from videomv_tpu_torch.parallel import (
+        FrameShard,
+        frame_sharded,
+        place_params_tp,
+        shard_on_axis,
+        tensor_parallel_mesh,
+        tp_shardings,
+    )
+
+    inp = _tensors(inputs)
+    out = []
+    for job in jobs:
+        unet = UNetSD_T2VBase(**job["kw"])
+        unet.load_state_dict(_tensors(job["sd"]))
+        unet.eval()
+        tp = int(job.get("tp", 1))
+        mesh = tensor_parallel_mesh(num_heads=unet.num_heads, tp=tp, sp=n // tp)
+        placement = None
+        if tp > 1:
+            placement = tp_shardings(unet, tp, head_dim=unet.head_dim)
+            place_params_tp(mesh, unet, head_dim=unet.head_dim)
+        shard = FrameShard.of(mesh, inp["x"].shape[2], axis="sp")
+        masks = (dict(video_mask=inp["vm"], focus_present_mask=inp["fpm"])
+                 if job.get("masks") else {})
+        with torch.no_grad(), frame_sharded(shard):
+            local = unet(shard_on_axis(mesh, inp["x"], 2), inp["t"], y=inp["y"],
+                         camera_data=shard_on_axis(mesh, inp["cam"], 1), **masks)
+        out.append({"out": shard.gather(local, 2).numpy(), "placement": placement})
+    return out
+
+
+# ------------------------------------------------------ Adafactor, viz (FSDP)
+
+
+def adafactor_shards(rank, n, params, grads, kw):
+    """``optimizer: adafactor`` over FSDP shards of ``params`` (name →
+    array; each its own unit, every one sharded on axis 0, uneven where its
+    rows do not divide): ``len(grads)`` steps from the given whole gradients,
+    then the parameters and the gathered state, and whether a fresh sharded
+    optimizer loaded from that state holds this rank's state bit for bit."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from videomv_tpu_torch.parallel import apply_fsdp, make_mesh
+    from videomv_tpu_torch.training.optim import build_optimizer
+
+    mesh = make_mesh(n)
+
+    def sharded_module():
+        units = torch.nn.ModuleDict()
+        for name, value in params.items():
+            unit = torch.nn.Module()
+            unit.w = torch.nn.Parameter(torch.from_numpy(value.copy()))
+            units[name] = unit
+        apply_fsdp(list(units.values()), mesh, min_size=1)
+        return units
+
+    units = sharded_module()
+    named = [(name, unit.w) for name, unit in units.items()]
+    opt = build_optimizer(named, **kw)
+    for g in grads:
+        for name, p in named:
+            p.grad = distribute_tensor(torch.from_numpy(g[name].copy()), p.device_mesh,
+                                       p.placements)
+        opt.step()
+    out = {"params": {name: full(p) for name, p in named},
+           "sharded": sum(isinstance(p, DTensor) for _, p in named)}
+    state = opt.full_state_dict()
+    out["state"] = {k: ([t.numpy().copy() for t in v] if isinstance(v, list) else v)
+                    for k, v in state.items()}
+    again = build_optimizer([(name, unit.w) for name, unit in sharded_module().items()], **kw)
+    again.load_full_state_dict(state)
+    mine = opt.state_dict()
+    out["restored_equal"] = again.count == opt.count and all(
+        torch.equal(a, b) for key in ("v_row", "v_col", "v")
+        for a, b in zip(again.state_dict()[key], mine[key]))
+    return out
+
+
+def fsdp_viz(rank, n, log_dir, prompts):
+    """The visualisation of configs/t2v_train_tiny.yaml (EMA on, 2 DDIM
+    steps, 4 views), replicated and under ``param_sharding: fsdp``, from the
+    same seeded weights: the frames each one writes (rank 0 writes; under
+    FSDP every rank samples), whether the EMA weights are copied into the
+    shards for it and back, and one step of the loop with the hook on."""
+    import videomv_tpu_torch.training.hooks as hooks
+    from videomv_tpu_torch.config import load_config
+
+    engine = _small_towers()
+    written = []
+    save = hooks.save_video_grid
+
+    def capture(path, videos, captions):
+        written.append([np.asarray(v).copy() for v in videos])
+        return save(path, videos, captions)
+
+    hooks.save_video_grid = capture
+    out = {}
+    for mode in ("replicated", "fsdp"):
+        cfg = load_config("configs/t2v_train_tiny.yaml", opts=[
+            "UNet.context_dim", "64", "save_ckp_interval", "0", "training_dtype", "float32",
+            "log_dir", os.path.join(log_dir, mode), "param_sharding", mode, "viz_interval", "1",
+            "validation_prompts", prompts, "ddim_timesteps", "2", "max_frames", "4"])
+        tr = engine.T2VTrainer(cfg, device="cpu").init(zero_init=False)
+        written.clear()
+        path = None
+        if tr._viz_here:
+            with tr._ema_weights():
+                path = tr.make_viz_hook(cfg.log_dir)(1, tr.unet)
+        out[mode] = {"path": path, "frames": written[0] if written else None,
+                     "sampled": tr._viz_here}
+    # under FSDP: the EMA weights (here half the trained ones) in the
+    # shards within the context, the trained ones after it
+    trained = {k: full(p) for k, p in tr.unet.named_parameters()}
+    with torch.no_grad():
+        torch._foreach_mul_(tr.state.ema, 0.5)
+    with tr._ema_weights():
+        inside = {k: full(p) for k, p in tr.unet.named_parameters()}
+    out["ema_swapped"] = all(np.array_equal(inside[k], np.float32(0.5) * v)
+                             for k, v in trained.items())
+    out["ema_restored"] = all(np.array_equal(full(p), trained[k])
+                              for k, p in tr.unet.named_parameters())
+    tr.train(num_steps=1, batch_size=2)
+    out["loop_wrote"] = sorted(os.listdir(os.path.join(cfg.log_dir, "viz"))) if rank == 0 else None
+    return out

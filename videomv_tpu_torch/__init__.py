@@ -11,4 +11,6 @@ The package imports ``torch`` and never ``jax``, ``flax`` or
 ``videomv_tpu``. Importing it is cheap: submodules load on demand.
 """
 
+__version__ = "0.1.0"
+
 __all__ = ["config", "data", "diffusion", "inference", "models", "ops", "training", "utils"]

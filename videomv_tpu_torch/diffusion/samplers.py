@@ -1,9 +1,12 @@
-"""DDIM sampling on torch tensors.
+"""Diffusion samplers on torch tensors.
 
-Port of ``ddim_sample_loop`` from ``videomv_tpu/diffusion/samplers.py``:
-deterministic (eta 0) or stochastic (eta > 0) DDIM with classifier-free
-guidance, x0 clamping or percentile thresholding, and the Gaussian-splat
-refine at fixed loop indices. A Python loop over the descending step
+Port of ``videomv_tpu/diffusion/samplers.py``: DDIM (deterministic with eta
+0, or stochastic) with classifier-free guidance, x0 clamping or percentile
+thresholding and the Gaussian-splat refine at fixed loop indices; the
+deterministic DDIM inversion x0 → xT; ancestral DDPM over every timestep;
+and PLMS, whose first step is the improved-Euler bootstrap and whose later
+steps climb the Adams–Bashforth ladder over the last three eps (the JAX
+package's repair of the reference's PLMS). A Python loop over the step
 sequence replaces ``lax.scan``. The latents stay float32; the denoiser casts
 to its own dtype.
 """
@@ -17,7 +20,8 @@ import torch
 
 from .gaussian import GaussianDiffusion, clip_x0
 
-__all__ = ["ddim_timestep_seq", "ddim_sample_loop"]
+__all__ = ["ddim_reverse_sample_loop", "ddim_sample_loop", "ddim_timestep_seq",
+           "ddpm_sample_loop", "plms_sample_loop"]
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -117,4 +121,123 @@ def ddim_sample_loop(
                                  guide_scale)
         x0 = _pred_x0(diffusion, out, xt, t, clamp, percentile, refine)
         xt = _ddim_update(diffusion, x0, xt, t, stride, eta, z)
+    return xt
+
+
+def _steps_tensor(step: int, b: int, device) -> torch.Tensor:
+    return torch.full((b,), int(step), dtype=torch.long, device=device)
+
+
+@torch.no_grad()
+def ddim_reverse_sample_loop(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    x0: torch.Tensor,
+    *,
+    ddim_timesteps: int = 20,
+    guide_scale: Optional[float] = None,
+    clamp: Optional[float] = None,
+    percentile: Optional[float] = None,
+) -> torch.Tensor:
+    """Deterministic DDIM inversion x0 → xT (diffusion_ddim.py:262-293):
+    over t = 0, stride, ..., each step moves the predicted x0 and eps to
+    ``alphas_cumprod`` at ``t + stride`` (clipped to T, where the cumprod is
+    padded with a 0)."""
+    T = diffusion.num_timesteps
+    stride = T // ddim_timesteps
+    b = x0.shape[0]
+    xt = x0
+    for step in range(0, T, stride):
+        t = _steps_tensor(step, b, x0.device)
+        out = _guided_prediction(diffusion, model_fn, xt, t, guide_scale)
+        pred_x0 = _pred_x0(diffusion, out, xt, t, clamp, percentile, False)
+        eps = diffusion.x0_to_eps(pred_x0, xt, t)
+        nxt = t + stride
+        a_next = diffusion._bcast("alphas_cumprod", nxt.clamp_max(T - 1), xt)
+        a_next = torch.where((nxt < T).reshape(a_next.shape), a_next, torch.zeros_like(a_next))
+        xt = torch.sqrt(a_next) * pred_x0 + torch.sqrt(1 - a_next) * eps
+    return xt
+
+
+@torch.no_grad()
+def ddpm_sample_loop(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    noise: torch.Tensor,
+    *,
+    guide_scale: Optional[float] = None,
+    clamp: Optional[float] = None,
+    percentile: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+    step_noise: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Ancestral sampling of p(x_{t-1} | x_t) over all T steps
+    (diffusion_ddim.py:106-136): ``mu + exp(log_var / 2) · z`` except at
+    t = 0. Loop index i (timestep T - 1 - i) draws its ``z`` like the
+    latents from ``generator``, or takes ``step_noise[i]`` (to replay
+    another sampler's draws)."""
+    T = diffusion.num_timesteps
+    b = noise.shape[0]
+    if step_noise is not None and len(step_noise) < T:
+        raise ValueError(f"step_noise holds {len(step_noise)} draws for {T} steps")
+    xt = noise
+    for i, step in enumerate(range(T - 1, -1, -1)):
+        t = _steps_tensor(step, b, noise.device)
+        mu, _, log_var, _ = diffusion.p_mean_variance(
+            model_fn, xt, t, guide_scale=guide_scale, clamp=clamp, percentile=percentile)
+        z = (step_noise[i].to(xt) if step_noise is not None else
+             torch.randn(xt.shape, generator=generator, device=xt.device, dtype=xt.dtype))
+        mask = (t != 0).to(xt.dtype).reshape((-1,) + (1,) * (xt.dim() - 1))
+        xt = mu + mask * torch.exp(0.5 * log_var) * z
+    return xt
+
+
+@torch.no_grad()
+def plms_sample_loop(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    noise: torch.Tensor,
+    *,
+    plms_timesteps: int = 20,
+    guide_scale: Optional[float] = None,
+    clamp: Optional[float] = None,
+    percentile: Optional[float] = None,
+) -> torch.Tensor:
+    """Pseudo linear multistep sampling over the DDIM step sequence: the
+    first step averages its eps with the eps at the next step's estimate
+    (two model calls, the improved-Euler bootstrap at ``clamp(t - stride,
+    0)``); the later ones take the 2nd-, 3rd- and 4th-order Adams–Bashforth
+    combination of this eps and the last three (diffusion_ddim.py:338-374)."""
+    T = diffusion.num_timesteps
+    stride = T // plms_timesteps
+    b = noise.shape[0]
+
+    def compute_eps(xt, t):
+        out = _guided_prediction(diffusion, model_fn, xt, t, guide_scale)
+        x0 = _pred_x0(diffusion, out, xt, t, clamp, percentile, False)
+        return diffusion.x0_to_eps(x0, xt, t)
+
+    def step_to_prev(eps, xt, t):
+        x0 = (diffusion._bcast("sqrt_recip_alphas_cumprod", t, xt) * xt
+              - diffusion._bcast("sqrt_recipm1_alphas_cumprod", t, xt) * eps)
+        alphas_prev = diffusion._bcast("alphas_cumprod", (t - stride).clamp_min(0), xt)
+        return torch.sqrt(alphas_prev) * x0 + torch.sqrt(1 - alphas_prev) * eps
+
+    history = []  # the last three eps, oldest first
+    xt = noise
+    for step in ddim_timestep_seq(T, plms_timesteps):
+        t = _steps_tensor(step, b, noise.device)
+        eps = compute_eps(xt, t)
+        if not history:
+            eps_next = compute_eps(step_to_prev(eps, xt, t), (t - stride).clamp_min(0))
+            eps_prime = (eps + eps_next) / 2.0
+        elif len(history) == 1:
+            eps_prime = (3 * eps - history[-1]) / 2.0
+        elif len(history) == 2:
+            eps_prime = (23 * eps - 16 * history[-1] + 5 * history[-2]) / 12.0
+        else:
+            eps_prime = (55 * eps - 59 * history[-1] + 37 * history[-2]
+                         - 9 * history[-3]) / 24.0
+        xt = step_to_prev(eps_prime, xt, t)
+        history = (history + [eps])[-3:]
     return xt

@@ -101,9 +101,13 @@ def unet_kwargs_from_cfg(unet_cfg: dict) -> dict:
         attn_scales=tuple(m.get("attn_scales", (1.0, 0.5, 0.25))),
         dropout=m.get("dropout", 0.1),
         temporal_attention=m.get("temporal_attention", True),
+        # the dormant variants through `temporal_block`, or the reference's
+        # boolean mirror (use_temporal_transformer False: rotary)
         temporal_block=m.get(
             "temporal_block",
             "transformer" if m.get("use_temporal_transformer", True) else "rotary"),
+        temporal_attn_times=m.get("temporal_attn_times", 1),
+        use_sim_mask=m.get("use_sim_mask", False),
         use_fps_condition=m.get("use_fps_condition", False),
         use_camera_condition=m.get("use_camera_condition", True),
         use_checkpoint=m.get("use_checkpoint", False),

@@ -1,6 +1,10 @@
 """UNet blocks of the T2V denoiser as PyTorch ``nn.Module``s (NCHW).
 
-Port of the transformer-path blocks of ``videomv_tpu/models/blocks.py``.
+Port of ``videomv_tpu/models/blocks.py``: the transformer-path blocks of the
+shipped checkpoint, and the dormant temporal variants the UNet selects with
+``temporal_block`` (``rotary``: ``TemporalAttentionMultiBlock`` of rotary
+``TemporalAttentionBlock``s with a ``RelativePositionBias``; ``attemask``:
+the causal ``TemporalTransformerAttemask``), plus ``DropPath``.
 Module and parameter names follow the released torch checkpoint keys
 (``in_layers.2.weight``, ``temopral_conv`` [sic], ``net.0.proj``...), so a
 released ``.pth`` loads with ``load_state_dict`` and a ``state_dict()``
@@ -40,13 +44,19 @@ __all__ = [
     "BasicTransformerBlock",
     "CrossAttention",
     "Downsample",
+    "DropPath",
     "FeedForward",
+    "RelativePositionBias",
     "ResBlock",
     "SpatialTransformer",
+    "TemporalAttentionBlock",
+    "TemporalAttentionMultiBlock",
     "TemporalConvBlockV2",
     "TemporalTransformer",
+    "TemporalTransformerAttemask",
     "TimestepMLP",
     "Upsample",
+    "rotary_rotate",
     "sinusoidal_embedding",
     "zero_module",
 ]
@@ -215,16 +225,33 @@ class SpatialTransformer(nn.Module):
         return h.reshape(bf, hh, ww, c).permute(0, 3, 1, 2) + x
 
 
+def _over_frames(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(tokens [B, C, F, S], group)`` over ``x [B, C, F, H, W]``, where
+    ``tokens`` hold every frame of S tokens. Under ``frame_sharded`` x is one
+    rank's block of frames: the tokens are this rank's share of them, taken
+    through the all-to-all and back, and ``group`` (None otherwise) is the
+    ranks whose statistics a norm must span."""
+    shard = current_frame_shard()
+    if shard is None:
+        b, c, f, hh, ww = x.shape
+        return fn(x.reshape(b, c, f, hh * ww), None).reshape(x.shape)
+    return shard.tokens_to_frames(fn(shard.frames_to_tokens(x), shard.group), x.shape[-2:])
+
+
 class TemporalTransformer(nn.Module):
     """Self-attention over the frame axis (util.py:992-1089, use_linear=False:
     k=1 conv1d projections, GroupNorm eps 1e-6). ``inner = n_heads·d_head``
     may differ from C (the dim-320 init block: 8 × 64 = 512).
+    ``multiply_zero`` (the UNet's ``use_image_dataset``) returns the input.
     [B, C, F, H, W] -> same."""
 
+    causal = False
+
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, multiply_zero: bool = False):
         super().__init__()
         inner = n_heads * d_head
+        self.multiply_zero = multiply_zero
         self.norm = nn.GroupNorm(32, in_channels, eps=1e-6)
         self.proj_in = nn.Conv1d(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList(
@@ -232,13 +259,9 @@ class TemporalTransformer(nn.Module):
         self.proj_out = zero_module(nn.Conv1d(inner, in_channels, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shard = current_frame_shard()
-        if shard is None:
-            b, c, f, hh, ww = x.shape
-            return self._tokens(x.reshape(b, c, f, hh * ww), None).reshape(x.shape)
-        # frame-sharded: every frame of this rank's tokens, and back
-        return shard.tokens_to_frames(self._tokens(shard.frames_to_tokens(x), shard.group),
-                                      x.shape[-2:])
+        if self.multiply_zero:
+            return x
+        return _over_frames(x, self._tokens)
 
     def _tokens(self, x: torch.Tensor, group) -> torch.Tensor:
         """The block over ``x [B, C, F, S]``: all F frames of S tokens; the
@@ -248,10 +271,186 @@ class TemporalTransformer(nn.Module):
         h = group_norm(self.norm, x, group).permute(0, 3, 2, 1).reshape(b * s, f, c)
         # a k=1 conv1d over the token layout is a linear map over channels
         h = F.linear(h, self.proj_in.weight[:, :, 0], self.proj_in.bias)
+        mask = (torch.ones(f, f, dtype=torch.bool, device=x.device).tril()
+                if self.causal else None)
         for block in self.transformer_blocks:
-            h = block(h)
+            h = block(h, None, mask)
         h = F.linear(h, self.proj_out.weight[:, :, 0], self.proj_out.bias)
         return x + h.reshape(b, s, f, c).permute(0, 3, 2, 1)
+
+
+class TemporalTransformerAttemask(TemporalTransformer):
+    """The causal temporal transformer (util.py:1150-1247): the
+    ``TemporalTransformer`` layout with both attentions of every block
+    lower-triangular-masked over the frames (token i attends to frames
+    <= i of the whole sample; the masked attention takes the plain path).
+    [B, C, F, H, W] -> same."""
+
+    causal = True
+
+
+def rotary_rotate(x: torch.Tensor, rot_dim: int, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over the sequence axis (-2): the
+    interleaved pair rotation of the first ``rot_dim`` channels
+    (rotary-embedding-torch's ``rotate_queries_or_keys``), computed in
+    float32; the other channels pass through."""
+    n = x.shape[-2]
+    dev = x.device
+    inv = 1.0 / theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32, device=dev) / rot_dim)
+    freqs = torch.arange(n, dtype=torch.float32, device=dev)[:, None] * inv[None, :]
+    freqs = freqs.repeat_interleave(2, dim=-1)  # [n, rot_dim]
+    xl, xr = x[..., :rot_dim].float(), x[..., rot_dim:]
+    x1, x2 = xl[..., 0::2], xl[..., 1::2]
+    rot_half = torch.stack([-x2, x1], dim=-1).reshape(xl.shape)
+    xl = xl * torch.cos(freqs) + rot_half * torch.sin(freqs)
+    return torch.cat([xl.to(x.dtype), xr], dim=-1)
+
+
+class RelativePositionBias(nn.Module):
+    """T5-style bucketed relative position bias (util.py:271-309):
+    ``forward(n, device)`` is ``[heads, n, n]``, added to the temporal
+    attention's logits. The bucket of a large offset is its float32 log,
+    truncated to an integer (key ``relative_attention_bias.weight``
+    [num_buckets, heads])."""
+
+    def __init__(self, heads: int = 8, num_buckets: int = 32, max_distance: int = 128):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = nn.Embedding(num_buckets, heads)
+
+    def buckets(self, n: int, device=None) -> torch.Tensor:
+        """The [n, n] int64 bucket of each (query, key) offset."""
+        pos = torch.arange(n, device=device)
+        neg = pos[:, None] - pos[None, :]  # q - k
+        half = self.num_buckets // 2
+        max_exact = half // 2
+        an = neg.abs()
+        large = torch.log(an.clamp_min(1).float() / max_exact) / torch.log(
+            torch.tensor(self.max_distance / max_exact, dtype=torch.float32, device=device))
+        large = max_exact + (large * (half - max_exact)).to(torch.int32).long()
+        large = large.clamp_max(half - 1)
+        return (neg < 0).long() * half + torch.where(an < max_exact, an, large)
+
+    def forward(self, n: int, device=None) -> torch.Tensor:
+        return self.relative_attention_bias(self.buckets(n, device)).permute(2, 0, 1)
+
+
+class TemporalAttentionBlock(nn.Module):
+    """Rotary temporal attention over the frame axis (util.py:871-990):
+    GroupNorm (eps 1e-5) → fused qkv → q scaled, then q and k rotated over
+    their first ``min(rotary_dim, dim_head)`` channels → float32 logits
+    (+ the relative position bias) → masks → softmax → ``to_out``, residual.
+    ``dim_head`` is ``dim // heads`` (util.py:885).
+
+    Masks, all optional, filled with float32's lowest value (a row they
+    empty gets a uniform softmax): ``video_mask [B, F]`` keeps the pairs of
+    valid frames; ``focus_present_mask [B]`` lets a row's frames attend to
+    themselves alone and, when given, takes the place of ``video_mask``;
+    ``use_sim_mask`` is causal, after both. ``use_image_dataset`` returns the
+    input. The attention is the plain one (F tokens and a bias).
+    [B, C, F, H, W] -> same."""
+
+    def __init__(self, dim: int, heads: int = 4, rotary_dim: int = 32,
+                 use_image_dataset: bool = False, use_sim_mask: bool = False):
+        super().__init__()
+        self.dim, self.heads, self.rotary_dim = dim, heads, rotary_dim
+        self.use_image_dataset, self.use_sim_mask = use_image_dataset, use_sim_mask
+        self.norm = nn.GroupNorm(32, dim, eps=1e-5)
+        self.to_qkv = nn.Linear(dim, dim * 3)
+        self.to_out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, pos_bias: Optional[torch.Tensor] = None,
+                focus_present_mask: Optional[torch.Tensor] = None,
+                video_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.use_image_dataset:
+            return x
+        return _over_frames(x, lambda t, group: self._tokens(
+            t, group, pos_bias, focus_present_mask, video_mask))
+
+    def _tokens(self, x: torch.Tensor, group, pos_bias, focus_present_mask, video_mask
+                ) -> torch.Tensor:
+        b, c, f, s = x.shape
+        heads, dh = self.heads, self.dim // self.heads
+        h = group_norm(self.norm, x, group).permute(0, 3, 2, 1).reshape(b * s, f, c)
+        q, k, v = (t.reshape(b * s, f, heads, dh).transpose(1, 2)
+                   for t in self.to_qkv(h).chunk(3, dim=-1))
+        rot = min(self.rotary_dim, dh)
+        q = rotary_rotate(q * dh ** -0.5, rot)
+        k = rotary_rotate(k, rot)
+        sim = q.float() @ k.float().transpose(-1, -2)  # [B·S, heads, F, F]
+        if pos_bias is not None:
+            sim = sim + pos_bias.float()[None]
+        mask = None
+        if focus_present_mask is not None:
+            eye = torch.eye(f, dtype=torch.bool, device=x.device)
+            mask = torch.where(focus_present_mask.bool()[:, None, None], eye,
+                               torch.ones_like(eye))
+        elif video_mask is not None:
+            vm = video_mask.bool()
+            mask = vm[:, None, :] & vm[:, :, None]
+        if mask is not None:
+            sim = sim.masked_fill(~mask.repeat_interleave(s, dim=0)[:, None],
+                                  torch.finfo(torch.float32).min)
+        if self.use_sim_mask:
+            causal = torch.ones(f, f, dtype=torch.bool, device=x.device).tril()
+            sim = sim.masked_fill(~causal, torch.finfo(torch.float32).min)
+        sim = sim - sim.amax(dim=-1, keepdim=True).detach()
+        out = torch.softmax(sim, dim=-1).to(v.dtype) @ v
+        out = self.to_out(out.transpose(1, 2).reshape(b * s, f, self.dim))
+        return x + out.reshape(b, s, f, c).permute(0, 3, 2, 1)
+
+
+class TemporalAttentionMultiBlock(nn.Module):
+    """``temporal_attn_times`` ``TemporalAttentionBlock``s in a row (keys
+    ``att_layers.{i}``; util.py:1249-1277). Frame-sharded, the frames ↔
+    tokens exchange happens once around all of them. [B, C, F, H, W] -> same."""
+
+    def __init__(self, dim: int, heads: int = 4, rotary_dim: int = 32,
+                 temporal_attn_times: int = 1, use_image_dataset: bool = False,
+                 use_sim_mask: bool = False):
+        super().__init__()
+        self.use_image_dataset = use_image_dataset
+        self.att_layers = nn.ModuleList(
+            TemporalAttentionBlock(dim, heads, rotary_dim, use_image_dataset, use_sim_mask)
+            for _ in range(temporal_attn_times))
+
+    def forward(self, x: torch.Tensor, pos_bias: Optional[torch.Tensor] = None,
+                focus_present_mask: Optional[torch.Tensor] = None,
+                video_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.use_image_dataset:
+            return x
+
+        def tokens(t, group):
+            for layer in self.att_layers:
+                t = layer._tokens(t, group, pos_bias, focus_present_mask, video_mask)
+            return t
+
+        return _over_frames(x, tokens)
+
+
+class DropPath(nn.Module):
+    """Per-row stochastic path drop without rescaling (util.py:1395-1433): in
+    training mode with ``p`` > 0 each row of ``x`` is zeroed with
+    probability ``p``, drawn from ``generator``; ``keep [B]`` rows are never
+    dropped and ``zero [B]`` rows always are (``zero`` wins). The identity
+    in eval mode or at ``p`` = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor, zero: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        b = x.shape[0]
+        drop = torch.rand(b, generator=generator, device=x.device) < self.p
+        if keep is not None:
+            drop = drop & ~keep.bool()
+        if zero is not None:
+            drop = drop | zero.bool()
+        return x * (~drop).to(x.dtype).reshape((b,) + (1,) * (x.dim() - 1))
 
 
 def _tconv(c_in: int, c_out: int, dropout: Optional[float], zero: bool = False) -> nn.Sequential:
@@ -266,17 +465,22 @@ def _tconv(c_in: int, c_out: int, dropout: Optional[float], zero: bool = False) 
 
 class TemporalConvBlockV2(nn.Module):
     """Four (3,1,1) temporal convs with a zero-init tail, residual
-    (util.py:1347-1392). [B, C, F, H, W] -> same."""
+    (util.py:1347-1392); ``multiply_zero`` returns the input.
+    [B, C, F, H, W] -> same."""
 
-    def __init__(self, in_dim: int, out_dim: Optional[int] = None, dropout: float = 0.0):
+    def __init__(self, in_dim: int, out_dim: Optional[int] = None, dropout: float = 0.0,
+                 multiply_zero: bool = False):
         super().__init__()
         out_dim = out_dim or in_dim
+        self.multiply_zero = multiply_zero
         self.conv1 = _tconv(in_dim, out_dim, None)
         self.conv2 = _tconv(out_dim, in_dim, dropout)
         self.conv3 = _tconv(in_dim, in_dim, dropout)
         self.conv4 = _tconv(in_dim, in_dim, dropout, zero=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.multiply_zero:
+            return x
         shard = current_frame_shard()
         if shard is None:
             return x + self.conv4(self.conv3(self.conv2(self.conv1(x))))
@@ -293,11 +497,12 @@ class TemporalConvBlockV2(nn.Module):
 
 class ResBlock(nn.Module):
     """GN/SiLU/conv residual block + timestep-embedding add + temporal conv
-    (util.py:610-730; GroupNorm eps 1e-5). ``forward(x [B·F, C, H, W],
+    (util.py:610-730; GroupNorm eps 1e-5); ``use_image_dataset`` turns the
+    temporal conv into the identity. ``forward(x [B·F, C, H, W],
     emb [B·F, E], frames)``."""
 
     def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
-                 out_channels: Optional[int] = None):
+                 out_channels: Optional[int] = None, use_image_dataset: bool = False):
         super().__init__()
         out_ch = out_channels or channels
         self.in_layers = nn.Sequential(nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
@@ -309,7 +514,8 @@ class ResBlock(nn.Module):
         self.skip_connection = (nn.Identity() if out_ch == channels
                                 else nn.Conv2d(channels, out_ch, 1))
         # [sic] spelling: the released checkpoint key (util.py:691)
-        self.temopral_conv = TemporalConvBlockV2(out_ch, out_ch, dropout=0.1)
+        self.temopral_conv = TemporalConvBlockV2(out_ch, out_ch, dropout=0.1,
+                                                 multiply_zero=use_image_dataset)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, frames: int) -> torch.Tensor:
         h = self.in_layers(x)

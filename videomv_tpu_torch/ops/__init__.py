@@ -7,6 +7,8 @@ them."""
 from . import flash_attention, fused_ffn, fused_spatial, splat
 from .attention import attention_eligible, dot_product_attention
 from .fused_ffn import ffn_eligible, geglu_ffn, geglu_ffn_reference
+from .gaussian_splat import project_gaussians, rasterize_dense, render_gaussians
+from .ply_io import load_ply, save_ply
 
 __all__ = [
     "attention_eligible",
@@ -19,7 +21,12 @@ __all__ = [
     "geglu_ffn_reference",
     "launch_counts",
     "launch_counts_by_shape",
+    "load_ply",
+    "project_gaussians",
+    "rasterize_dense",
+    "render_gaussians",
     "reset_launch_counts",
+    "save_ply",
     "splat",
 ]
 

@@ -51,8 +51,11 @@ before the VAE and text encode; the steps draw the global batch's randoms
 and average the gradients (``parallel.train_step``). ``dp_devices`` below
 the world size raises (a rank would hold no rows); above it, the world is
 used and the run says so, as the JAX mesh takes the devices there are.
-``param_sharding: fsdp`` shards the UNet's blocks, its AdamW moments and its
-EMA over the mesh; a save gathers the full state, a restore re-shards it.
+``param_sharding: fsdp`` shards the UNet's blocks, the optimizer's state
+(AdamW's moments; Adafactor's, where they keep the sharded axis) and the EMA
+over the mesh; a save gathers the full state, a restore re-shards it. The
+visualisation runs on every rank under FSDP (the blocks all-gather their
+parameters in its forwards, the EMA weights copied into the shards for it).
 Rank 0 logs and writes. Without a process group the run is on one device,
 and ``fsdp`` has nothing to shard.
 """
@@ -490,12 +493,6 @@ class T2VTrainer:
         log_dir = cfg.get("log_dir", "workspace/experiment")
         os.makedirs(log_dir, exist_ok=True)
         viz_interval = int(cfg.get("viz_interval", 0))
-        # rank 0 samples the visualisation; a sharded UNet would need every
-        # rank in its forward, so FSDP runs none
-        self._viz_here = self.rank == 0 and not self.fsdp
-        if viz_interval and self.fsdp:
-            logger.warning("viz_interval %d: no visualisation under param_sharding fsdp",
-                           viz_interval)
         # I2V samples from the batch's own conditioning (i2v_viz) instead
         viz_hook = (self.make_viz_hook(log_dir)
                     if viz_interval and not self.use_lgm_refine and not self.is_i2v else None)
@@ -556,6 +553,18 @@ class T2VTrainer:
         if ema is None:
             yield
             return
+        if self._sharded():
+            # FSDP gathers from each shard's own storage: copy in and back
+            with torch.no_grad():
+                shards = [local_tensor(p) for p in self.unet.parameters()]
+                trained = [t.clone() for t in shards]
+                torch._foreach_copy_(shards, ema)
+            try:
+                yield
+            finally:
+                with torch.no_grad():
+                    torch._foreach_copy_(shards, trained)
+            return
         params = list(self.unet.parameters())
 
         def swap():
@@ -605,8 +614,9 @@ class T2VTrainer:
         eval mode over the UNet's present weights (the loop swaps the EMA
         weights in), decoded by the VAE and written by ``save_video_grid`` as
         ``<log_dir>/viz/viz_step_XXXXXXXX.mp4``. Returns the written path.
-        Like the JAX trainer it never raises into the loop: a failure is
-        logged as ``i2v viz failed`` and None returned."""
+        Under FSDP every rank samples (its own rows) and rank 0 writes; the
+        others return None. Like the JAX trainer it never raises into the
+        loop: a failure is logged as ``i2v viz failed`` and None returned."""
         was_training = self.unet.training
         try:
             lat = feats["latents"][:min(int(self.cfg.get("viz_num", 1)),
@@ -616,6 +626,8 @@ class T2VTrainer:
             noise = torch.randn(lat.shape, generator=gen, device=lat.device)
             self.unet.eval()
             frames = self._decode_viz(self.sample_i2v_viz(noise, feats))
+            if self.rank != 0:
+                return None
             path = save_video_grid(
                 os.path.join(log_dir, "viz", f"viz_step_{step:08d}.mp4"), list(frames),
                 (list(captions) or [""] * len(frames))[:len(frames)])
@@ -657,7 +669,7 @@ class T2VTrainer:
             return pipe
 
         return VisualTrainHook(
-            factory, prompts, os.path.join(log_dir, "viz"),
+            factory, prompts, os.path.join(log_dir, "viz"), write=self.rank == 0,
             guide_scale=float(self.cfg.get("visual_train", {}).get("guide_scale", 9.0)),
             steps=int(self.cfg.get("ddim_timesteps", 50)),
             autocast_dtype=torch.bfloat16 if self.dtype == torch.bfloat16 else None)
@@ -676,12 +688,9 @@ class T2VTrainer:
                        "opt_state": self.lgm_state.optimizer.state_dict(), "step": step}
         else:
             step = int(self.state.step)
-            opt = self.state.optimizer.state_dict()
-            if self._sharded():
-                opt = dict(opt, **{k: self._full(opt[k]) for k in ("mu", "nu")})
             payload = {"params": self._full_unet_state(),
                        "ema": self._full(self.state.ema) if self.state.ema else [],
-                       "opt_state": opt, "step": step}
+                       "opt_state": self.state.optimizer.full_state_dict(), "step": step}
         path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}.pth"))
         if self.rank == 0:
             os.makedirs(ckpt_dir, exist_ok=True)
@@ -693,6 +702,13 @@ class T2VTrainer:
 
     def _sharded(self) -> bool:
         return self.fsdp and not self.use_lgm_refine
+
+    @property
+    def _viz_here(self) -> bool:
+        """Whether this rank samples the visualisation: rank 0, or under
+        FSDP every rank (the UNet blocks all-gather their parameters in each
+        forward); rank 0 writes."""
+        return self.rank == 0 or self._sharded()
 
     def _full(self, tensors):
         """This rank's shards (the UNet's parameter order) → full tensors;
@@ -737,7 +753,6 @@ class T2VTrainer:
             self.lgm_state.optimizer.load_state_dict(state["opt_state"])
             self.lgm_state.step = int(state["step"])
             return self
-        opt = state["opt_state"]
         if self._sharded():
             from torch.distributed.checkpoint.state_dict import (
                 StateDictOptions,
@@ -746,10 +761,9 @@ class T2VTrainer:
 
             set_model_state_dict(self.unet, state["params"],
                                  options=StateDictOptions(full_state_dict=True))
-            opt = dict(opt, **{k: self._local(opt[k]) for k in ("mu", "nu")})
         else:
             self.unet.load_state_dict(state["params"], strict=True)
-        self.state.optimizer.load_state_dict(opt)
+        self.state.optimizer.load_full_state_dict(state["opt_state"])
         if self.state.ema is not None:
             if len(state["ema"]) != len(self.state.ema):
                 raise ValueError(f"{path} holds no EMA weights for this UNet")

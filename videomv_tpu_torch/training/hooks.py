@@ -30,12 +30,15 @@ class VisualTrainHook:
     ``pipeline_factory`` (built at the first call), whose UNet is the one
     handed to each call: sampled in eval mode, under autocast to
     ``autocast_dtype`` when given (bf16 on the card over fp32 masters), and
-    left in the mode it came in."""
+    left in the mode it came in. ``write=False`` samples and writes nothing
+    (the other ranks of an FSDP-sharded UNet, whose forwards need every
+    rank)."""
 
     def __init__(self, pipeline_factory: Callable, prompts: Sequence[str], out_dir: str,
                  guide_scale: float = 9.0, steps: int = 50, max_prompts: int = 4,
-                 autocast_dtype: Optional[torch.dtype] = None):
+                 autocast_dtype: Optional[torch.dtype] = None, write: bool = True):
         self.pipeline_factory = pipeline_factory
+        self.write = write
         self.prompts = list(prompts)[:max_prompts]
         self.out_dir = out_dir
         self.guide_scale = guide_scale
@@ -62,13 +65,14 @@ class VisualTrainHook:
                                             guide_scale=self.guide_scale, seed=step)
                     videos.append(out["frames"])
                     captions.append(prompt)
-                    # latent mosaic (visual_train_it2v_video.py:49-62)
-                    mosaic = out["latents"][0].transpose(1, 2, 3, 0)[..., :3]
-                    mosaic = (mosaic - mosaic.min()) / (np.ptp(mosaic) + 1e-8)
-                    self._save_mosaic(mosaic, step, prompt)
+                    if self.write:
+                        # latent mosaic (visual_train_it2v_video.py:49-62)
+                        mosaic = out["latents"][0].transpose(1, 2, 3, 0)[..., :3]
+                        mosaic = (mosaic - mosaic.min()) / (np.ptp(mosaic) + 1e-8)
+                        self._save_mosaic(mosaic, step, prompt)
                 except Exception as e:  # noqa: BLE001 - visualisation never stops training
                     logger.warning("viz failed for %r: %s", prompt, e)
-            if not videos:
+            if not videos or not self.write:
                 return None
             os.makedirs(self.out_dir, exist_ok=True)
             path = save_video_grid(os.path.join(self.out_dir, f"viz_step_{step:08d}.mp4"),

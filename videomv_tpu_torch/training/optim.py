@@ -32,10 +32,18 @@ The gradient scale is applied as JAX applies it, before the optimizer:
 Adam normalises a constant scale away except through ``eps``.
 
 Under FSDP (``parallel.mesh.apply_fsdp``) a parameter is a ``DTensor`` of
-which this rank holds a shard; AdamW is elementwise and updates the shard
-it holds (its moments are shards too), and the global norm of the clip sums
-the shards' squares over the ranks. Adafactor's factored moments span the
-sharded axis, and it refuses sharded parameters.
+which this rank holds a shard (rows of its axis 0, fewer or none on the last
+ranks where the rows do not divide); the global norm of the clip sums the
+shards' squares over the ranks. AdamW is elementwise and updates the shard
+it holds (its moments are shards too). Adafactor keeps what optax computes
+on the whole parameter: the factored axes are chosen from the global shape,
+every mean over axis 0 (the moments' reduction, ``row_col_mean``) is a sum
+all-reduced over the ranks and divided by the global row count, and the RMS
+of ``clip_by_block_rms`` and ``scale_by_param_block_rms`` is all-reduced
+likewise; a moment that keeps axis 0 is sharded with its parameter, one that
+reduces it is whole on every rank. ``full_state_dict`` gathers either
+optimizer's state into whole tensors (every rank calls it) and
+``load_full_state_dict`` cuts whole tensors back to this rank's shards.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["Adafactor", "AdamW", "annealing_lr", "build_optimizer", "clip_by_global_norm_",
            "local_tensor", "scale_selected_grads", "sd_key_matcher"]
@@ -127,6 +135,22 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _gather_rows(t: torch.Tensor, param: DTensor) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's rows, split over axis 0
+    as ``param`` is."""
+    shape = (param.shape[0],) + tuple(t.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, param.device_mesh, param.placements, shape=shape,
+                              stride=stride).full_tensor()
+
+
+def _shard_rows(t: torch.Tensor, param: DTensor) -> torch.Tensor:
+    """This rank's rows of the whole tensor ``t``, split over axis 0 as
+    ``param`` is."""
+    return distribute_tensor(t.to(param.device), param.device_mesh,
+                             param.placements).to_local()
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
                          sharded: Sequence[bool] = (), group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: when the global L2 norm of
@@ -184,6 +208,31 @@ class _Optimizer:
         anew each step: FSDP may rebind a shard's tensor after the first
         forward."""
         return [local_tensor(p) for p in self.params]
+
+    def _state_rows(self) -> Dict[str, List[bool]]:
+        """For each list of per-parameter state, whether each tensor holds
+        rows of its parameter's sharded axis 0."""
+        raise NotImplementedError
+
+    def full_state_dict(self) -> Dict[str, object]:
+        """``state_dict()`` with every sharded tensor gathered whole; under
+        FSDP every rank calls it."""
+        state = self.state_dict()
+        if any(self.sharded):
+            for key, rows in self._state_rows().items():
+                state[key] = [_gather_rows(t, p) if r else t
+                              for t, p, r in zip(state[key], self.params, rows)]
+        return state
+
+    def load_full_state_dict(self, state: Dict[str, object]) -> None:
+        """``load_state_dict`` of whole tensors, each cut to this rank's
+        rows where its parameter is sharded."""
+        if any(self.sharded):
+            state = dict(state)
+            for key, rows in self._state_rows().items():
+                state[key] = [_shard_rows(t, p) if r else t
+                              for t, p, r in zip(state[key], self.params, rows)]
+        self.load_state_dict(state)
 
     def _grads(self) -> List[torch.Tensor]:
         """The fp32 gradients after clipping and the key scale (this rank's
@@ -252,6 +301,9 @@ class AdamW(_Optimizer):
         torch._foreach_copy_(self.mu, mu32)
         return lr
 
+    def _state_rows(self) -> Dict[str, List[bool]]:
+        return {"mu": list(self.sharded), "nu": list(self.sharded)}
+
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count, "mu": [m.clone() for m in self.mu],
                 "nu": [v.clone() for v in self.nu]}
@@ -271,18 +323,19 @@ ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY, ADAFACTOR_EPS = 128, 0.8, 1e-30
 
 
 class Adafactor(_Optimizer):
-    """``optax.adafactor`` at its defaults over fp32 parameters (see the
-    module docstring). Per parameter the state is the factored row and
-    column moments (``v_row``, ``v_col``) or the full one (``v``)."""
+    """``optax.adafactor`` at its defaults over fp32 parameters, whole or
+    FSDP shards (see the module docstring). Per parameter the state is the
+    factored row and column moments (``v_row``, ``v_col``) or the full one
+    (``v``)."""
 
     def __init__(self, params, schedule: Callable[[int], float], **transforms):
         super().__init__(params, schedule, **transforms)
-        if any(self.sharded):
-            raise NotImplementedError("Adafactor over FSDP-sharded parameters: its factored "
-                                      "moments span the sharded axis; use AdamW")
-        self.dims = [self._factored_dims(p.shape) for p in self.params]
+        # chosen from the whole parameter's shape: a shard's may sort otherwise
+        self.dims = [self._factored_dims(tuple(p.shape)) for p in self.params]
         self.v_row, self.v_col, self.v = [], [], []
-        for p, d in zip(self.params, self.dims):
+        with torch.no_grad():
+            local = self._tensors()
+        for p, d in zip(local, self.dims):
             # the unused moments are (1,) zeros, as in optax's state
             without = (lambda axis: [s for i, s in enumerate(p.shape) if i != axis])
             self.v_row.append(p.new_zeros(without(d[1]) if d else (1,)))
@@ -300,8 +353,36 @@ class Adafactor(_Optimizer):
             return None
         return int(order[-2]), int(order[-1])
 
+    def _state_rows(self) -> Dict[str, List[bool]]:
+        # v_row drops the largest axis, v_col the second largest
+        return {"v_row": [s and d is not None and d[1] != 0
+                          for s, d in zip(self.sharded, self.dims)],
+                "v_col": [s and d is not None and d[0] != 0
+                          for s, d in zip(self.sharded, self.dims)],
+                "v": [s and d is None for s, d in zip(self.sharded, self.dims)]}
+
+    def _mean(self, i: int, x: torch.Tensor, dim: int, rows: bool,
+              keepdim: bool = False) -> torch.Tensor:
+        """The mean of ``x`` over ``dim`` as optax takes it on the whole
+        parameter ``i``; ``rows``: x's axis 0 is the parameter's axis 0,
+        which this rank holds a shard of when the parameter is sharded."""
+        if not (self.sharded[i] and rows and dim == 0):
+            return x.mean(dim=dim, keepdim=keepdim)
+        total = x.sum(dim=0, keepdim=keepdim)
+        dist.all_reduce(total, group=self.group)
+        return total / self.params[i].shape[0]
+
+    def _rms(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """The root mean square of the whole parameter-shaped ``x``."""
+        if not self.sharded[i]:
+            return x.square().mean().sqrt()
+        total = x.square().sum()
+        dist.all_reduce(total, group=self.group)
+        return (total / self.params[i].numel()).sqrt()
+
     @torch.no_grad()
     def step(self) -> float:
+        params = self._tensors()
         grads = self._grads()
         lr = self.schedule(self.count)
         f32 = np.float32
@@ -309,23 +390,23 @@ class Adafactor(_Optimizer):
         decay32 = f32(1.0) - f32(self.count + 1) ** f32(-ADAFACTOR_DECAY)
         decay, rest = float(decay32), float(f32(1.0) - decay32)
         self.count += 1
-        for i, (p, g, d) in enumerate(zip(self.params, grads, self.dims)):
+        for i, (p, g, d) in enumerate(zip(params, grads, self.dims)):
             gsq = g * g + ADAFACTOR_EPS
             if d is None:
                 self.v[i] = decay * self.v[i] + rest * gsq
                 u = g * self.v[i] ** -0.5
             else:
                 d1, d0 = d
-                self.v_row[i] = decay * self.v_row[i] + rest * gsq.mean(dim=d0)
-                self.v_col[i] = decay * self.v_col[i] + rest * gsq.mean(dim=d1)
+                self.v_row[i] = decay * self.v_row[i] + rest * self._mean(i, gsq, d0, True)
+                self.v_col[i] = decay * self.v_col[i] + rest * self._mean(i, gsq, d1, True)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = self.v_row[i].mean(dim=reduced_d1, keepdim=True)
+                row_col_mean = self._mean(i, self.v_row[i], reduced_d1, d0 != 0, keepdim=True)
                 row_factor = (self.v_row[i] / row_col_mean) ** -0.5
                 col_factor = self.v_col[i] ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             # clip_by_block_rms(1), the learning rate, scale_by_param_block_rms
-            u = u / torch.clamp_min(u.square().mean().sqrt(), 1.0)
-            u = u * lr * torch.clamp_min(p.square().mean().sqrt(), 1e-3)
+            u = u / torch.clamp_min(self._rms(i, u), 1.0)
+            u = u * lr * torch.clamp_min(self._rms(i, p), 1e-3)
             p.sub_(u)
         return lr
 
