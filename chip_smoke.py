@@ -16,8 +16,11 @@ Phases (each prints its lines; a failed phase exits non-zero):
      composite's backward kernel on the same two calls (error vs its twin,
      relative to the largest gradient; the per-tile kernel of the first port
      and the item order in turns), the binned render of one view
-     against the dense oracle, the backward of the attention and FFN
-     wrappers against autograd of their twins, and the fused spatial block
+     against the dense oracle, the attention backward kernel at every
+     trained shape against its twin and autograd of the fp32 plain
+     attention (chunked by rows; its lse input against its twin; two runs
+     bit-equal; kernel, twin and the library's backward timed), the FFN
+     wrapper's backward against autograd of its twin, and the fused spatial block
      at the UNet's 32² / C = 320 stage over the I2V and T2V contexts (error
      vs its fp32 twin, held to twice the bf16 module path's, for both
      hand-written kernels; the module path's time beside it; its backward);
@@ -31,7 +34,8 @@ Phases (each prints its lines; a failed phase exits non-zero):
      weights, bf16 with the kernels on the card vs fp32 plain on the host;
   5. refine: one Gaussian-splat refine step (refine_fn) at full width,
      bf16 with the kernels vs fp32 with the plain paths, both on the card,
-     end to end and stage by stage on the same inputs;
+     end to end and stage by stage on the same inputs (the VAE stages, which
+     run no kernel, against the fp32 arithmetic of the served weights);
   6. slice: configs/t2v_infer.yaml as shipped (refine on, shared uncond)
      served at full width, 24 views, 256², 50 DDIM steps, CFG 9.0, bf16 —
      two plain requests, two refined requests (the first of each is
@@ -69,14 +73,15 @@ Phases (each prints its lines; a failed phase exits non-zero):
      shape, a finite loss, every UNet parameter moved and the frozen towers
      bit-identical; a step by parts under CUDA events (encode, forward,
      backward, optimizer, an EMA lerp), the host wall, the device busy share
-     of a step under torch.profiler and the peak memory; the attention twin's
-     backward alone; one step's UNet gradient bf16 with kernel 1 vs fp32
+     of a step under torch.profiler and the peak memory; the attention's
+     forward + backward alone, kernel 1 (its backward kernel) against the
+     plain twin, time and peak; one step's UNet gradient bf16 with kernel 1 vs fp32
      plain; the visualisation hook once; a save / restore round trip of the
      full state; the training CLI
      at the shipped batch of 8; then configs/t2v_train_laion.yaml on a shard
      written into workspace/, 4 steps with an image step (f = 1) every 2nd
-     at the shipped image batch of 196 and video batch 16 (the shipped 24
-     does not fit in 80 GB);
+     at the shipped batches (image 196, video 24 = 576 rows) with each
+     step's seconds, then one video step by parts and its peak;
  11. i2v_train: configs/i2vgen_xl_train.yaml as shipped (UNetSD_I2VGen of
      1.42 B parameters trained in fp32 under bf16 autocast, the joint text +
      visual tower and the VAE frozen, cosine / zero terminal SNR /
@@ -134,8 +139,13 @@ kernels; ``--phases env,ffn_ablation`` (``spatial_ablation``,
 ``splat_bwd_ablation``) times kernel 2 (5, 4) with parts compiled out;
 ``--phases env,unet_train_memory`` takes one joint-LAION step at each batch of
 UNET_TRAIN_MEMORY_BATCHES and prints its peak memory or its out-of-memory error;
+``--phases env,vae_logits`` runs the refine phase with the VAE's attention logits
+formed as a bf16 product and as fp32, on the same inputs;
 ``--phases env,init_cost`` times the seeded init of the I2V trainer's models as
-a sequential loop (draw, scaling and copy apart) against ``init_models``.
+a sequential loop (draw, scaling and copy apart) against ``init_models``;
+``--phases env,build,train_spread`` repeats the train phase's two gradient
+checks on TRAIN_SPREAD_DRAWS draws of the step's randoms and prints each
+reading's spread against its bound.
 """
 
 from __future__ import annotations
@@ -156,6 +166,10 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source="videomv_tpu_torch/csrc/flash_attention.cu",
         replaces="videomv_tpu/ops/flash_attention.py:36"),
+    # kernel 1's gradient: the JAX package's custom VJP (_bwd) of that kernel
+    "flash_attention_bwd": dict(
+        route="cuda", source="videomv_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="videomv_tpu/ops/flash_attention.py:121"),
     "geglu_ffn": dict(
         route="cuda", source="videomv_tpu_torch/csrc/fused_ffn.cu",
         replaces="videomv_tpu/ops/fused_ffn.py:70"),
@@ -209,10 +223,10 @@ FFN_SHAPES = {(49152, 320, 1280): 470, (12288, 640, 2560): 470, (49152, 512, 204
 PLAIN_BY_SHAPE = {"flash_attention": {(48, 1024, 5, 64): 250, (48, 256, 10, 64): 250},
                   "geglu_ffn": {(49152, 320, 1280): 500, (12288, 640, 2560): 500,
                                 (49152, 512, 2048): 50}}
-PLAIN_LAUNCHES = {"flash_attention": 500, "geglu_ffn": 1050, "splat_composite": 0,
-                  "splat_composite_bwd": 0, "fused_spatial": 0}
-REFINED_LAUNCHES = {"flash_attention": 533, "geglu_ffn": 1050, "splat_composite": 3,
-                    "splat_composite_bwd": 0, "fused_spatial": 0}
+PLAIN_LAUNCHES = {"flash_attention": 500, "flash_attention_bwd": 0, "geglu_ffn": 1050,
+                  "splat_composite": 0, "splat_composite_bwd": 0, "fused_spatial": 0}
+REFINED_LAUNCHES = {"flash_attention": 533, "flash_attention_bwd": 0, "geglu_ffn": 1050,
+                    "splat_composite": 3, "splat_composite_bwd": 0, "fused_spatial": 0}
 # The I2V requests of configs/i2vgen_xl_infer.yaml (50 steps, CFG rows
 # batched, refine `shared` at 20/30/40). With the fused spatial block switched
 # on, each forward's five 32² SpatialTransformers are one fused launch each and
@@ -220,10 +234,10 @@ REFINED_LAUNCHES = {"flash_attention": 533, "geglu_ffn": 1050, "splat_composite"
 # instead of 10 + 21; the refined request adds the LGM's 11 attentions and one
 # composite per refine step.
 I2V_PLAIN_OFF = dict(PLAIN_LAUNCHES)
-I2V_PLAIN_ON = {"flash_attention": 250, "geglu_ffn": 800, "splat_composite": 0,
-                "splat_composite_bwd": 0, "fused_spatial": 250}
-I2V_REFINED_ON = {"flash_attention": 283, "geglu_ffn": 800, "splat_composite": 3,
-                  "splat_composite_bwd": 0, "fused_spatial": 250}
+I2V_PLAIN_ON = {"flash_attention": 250, "flash_attention_bwd": 0, "geglu_ffn": 800,
+                "splat_composite": 0, "splat_composite_bwd": 0, "fused_spatial": 250}
+I2V_REFINED_ON = {"flash_attention": 283, "flash_attention_bwd": 0, "geglu_ffn": 800,
+                  "splat_composite": 3, "splat_composite_bwd": 0, "fused_spatial": 250}
 I2V_FUSED_BY_SHAPE = {"plain": {(48, 1024, 320, 145): 250},
                       "refined": {(48, 1024, 320, 145): 235, (24, 1024, 320, 145): 15}}
 I2V_CFG = "configs/i2vgen_xl_infer.yaml"
@@ -235,13 +249,15 @@ T2V_FUSED_BY_SHAPE = {(48, 1024, 320, 77): 250}
 # UNet.use_lgm_refine True): the frozen UNet's forward at 24 rows without
 # grad (5 + 5 attention launches; in training mode its FFN gate is closed),
 # the LGM's 11 head_dim-64 attentions once in the checkpointed forward and
-# once more in each block's recomputation, and the 8 supervision views at
-# 512² in 4 chunks of 2: one composite launch per chunk in the forward, one
-# in its recomputation, one backward launch.
+# once more in each block's recomputation, then once each in the backward
+# kernel, and the 8 supervision views at 512² in 4 chunks of 2: one
+# composite launch per chunk in the forward, one in its recomputation, one
+# backward launch.
 TRAIN_ATTN_SHAPES = {(24, 1024, 5, 64): 5, (24, 256, 10, 64): 5,
                      (1, 1024, 16, 64): 10, (1, 256, 16, 64): 12}
-TRAIN_LAUNCHES = {"flash_attention": 32, "geglu_ffn": 0, "splat_composite": 8,
-                  "splat_composite_bwd": 4, "fused_spatial": 0}
+TRAIN_ATTN_BWD_SHAPES = {(1, 1024, 16, 64): 5, (1, 256, 16, 64): 6}
+TRAIN_LAUNCHES = {"flash_attention": 32, "flash_attention_bwd": 11, "geglu_ffn": 0,
+                  "splat_composite": 8, "splat_composite_bwd": 4, "fused_spatial": 0}
 TRAIN_VIEW_CHUNK, TRAIN_RENDER_SIZE = 2, 512
 TRAIN_STEPS = 3
 # d loss / d Gaussians through kernels 3 and 4 vs through their twins, on the
@@ -254,16 +270,20 @@ TRAIN_DGAUSS_TOL = 2e-4
 # size: cosine of the two flattened gradients, and the ratio of their norms
 TRAIN_GRAD_MIN_COS = 0.9
 TRAIN_GRAD_NORM_RATIO = (0.8, 1.25)
+# draws of the step's randoms that `train_spread` holds both checks on (the
+# LGM gradient check on every third)
+TRAIN_SPREAD_DRAWS = 45
 TRAIN_OPTS = ["UNet.use_lgm_refine", "True", "save_ckp_interval", "0",
               "log_dir", "workspace/chip_smoke_train"]
 # The plain UNet finetune of configs/t2v_train.yaml as shipped (dim 320,
 # 24 views, block checkpointing on) at batch 2: kernel 1 serves the self-
 # attention of the five 32² and the five 16² SpatialTransformers once in the
-# forward and once more in each checkpointed block's recomputation; the
-# backward goes through its plain twin. Kernels 2 and 5 stay closed in training
-# mode and nothing renders: 20 launches a step, (48, 1024, 5, 64) and
-# (48, 256, 10, 64) ten each. An image step of the joint LAION finetune (f = 1)
-# launches the same twenty at its own row count.
+# forward and once more in each checkpointed block's recomputation, and the
+# backward kernel once for each. Kernels 2 and 5 stay closed in training
+# mode and nothing renders: 20 forward launches a step, (48, 1024, 5, 64) and
+# (48, 256, 10, 64) ten each, and 10 backward launches, five each. An image
+# step of the joint LAION finetune (f = 1) launches the same thirty at its own
+# row count.
 UNET_TRAIN_STEPS, UNET_TRAIN_BATCH, UNET_TRAIN_VIEWS = 3, 2, 24
 
 
@@ -298,6 +318,18 @@ def unet_train_attn_shapes(rows):
     return {(rows, 1024, 5, 64): 10, (rows, 256, 10, 64): 10}
 
 
+def unet_train_bwd_shapes(rows):
+    return {(rows, 1024, 5, 64): 5, (rows, 256, 10, 64): 5}
+
+
+def unet_train_by_shape(rows, steps=1):
+    """Kernel 1's forward and backward launches by shape in ``steps`` UNet
+    finetune steps at ``rows`` rows (no other kernel runs)."""
+    return {"flash_attention": {k: v * steps for k, v in unet_train_attn_shapes(rows).items()},
+            "flash_attention_bwd": {k: v * steps for k, v in unet_train_bwd_shapes(rows).items()},
+            "geglu_ffn": {}, "fused_spatial": {}}
+
+
 def _doubled(shapes):
     """Launches by shape of the same path at twice the rows."""
     return {(2 * s[0],) + tuple(s[1:]): c for s, c in shapes.items()}
@@ -318,7 +350,9 @@ MULTIRANK_BY_SHAPE = {
     "geglu_ffn": {(24576, 320, 1280): 10 * MULTIRANK_STEPS,
                   (6144, 640, 2560): 10 * MULTIRANK_STEPS,
                   (24576, 512, 2048): MULTIRANK_STEPS}}
-DIST_TRAIN_BY_SHAPE = {"flash_attention": unet_train_attn_shapes(DIST_TRAIN_BATCH * UNET_TRAIN_VIEWS)}
+DIST_TRAIN_BY_SHAPE = {"flash_attention": unet_train_attn_shapes(DIST_TRAIN_BATCH * UNET_TRAIN_VIEWS),
+                       "flash_attention_bwd": unet_train_bwd_shapes(
+                           DIST_TRAIN_BATCH * UNET_TRAIN_VIEWS)}
 
 
 def _slice_e_calls(name, shape):
@@ -331,23 +365,37 @@ def _slice_e_calls(name, shape):
                 calls_per_dist_train_step=DIST_TRAIN_BY_SHAPE.get(name, {}).get(shape, 0))
 
 
-UNET_TRAIN_LAUNCHES = {"flash_attention": 20, "geglu_ffn": 0, "splat_composite": 0,
-                       "splat_composite_bwd": 0, "fused_spatial": 0}
+UNET_TRAIN_LAUNCHES = {"flash_attention": 20, "flash_attention_bwd": 10, "geglu_ffn": 0,
+                       "splat_composite": 0, "splat_composite_bwd": 0, "fused_spatial": 0}
 UNET_TRAIN_OPTS = ["save_ckp_interval", "0", "viz_interval", "0",
                    "log_dir", "workspace/chip_smoke_unet_train"]
 # the joint LAION run of configs/t2v_train_laion.yaml: 4 steps with an image
 # step every 2nd (shipped: every 4th), the image steps at the shipped
-# batch_sizes["1"] and the video steps at UNET_TRAIN_LAION_BATCH: the shipped
-# 24 runs out of the card's memory (the plain attention backward's fp32
-# logits grow with the rows; `--phases env,unet_train_memory`), 16 fits
+# batch_sizes["1"] and the video steps at the shipped batch_sizes["24"]
+# (576 rows: it fits the card since the attention backward is a kernel; the
+# plain backward's fp32 logits did not)
 UNET_TRAIN_IMAGE_EVERY, UNET_TRAIN_IMAGE_BATCH, UNET_TRAIN_LAION_STEPS = 2, 196, 4
-UNET_TRAIN_LAION_BATCH = 16
+UNET_TRAIN_LAION_BATCH = 24
 # the CLI run's batch: the shipped batch_sizes["24"] of configs/t2v_train.yaml
 UNET_TRAIN_CLI_BATCH = 8
 # kernel 1's row counts in the unet_train phase that no served path gives it:
 # the CLI's, the LAION run's image steps' and its video steps'
 UNET_TRAIN_CHECK_ROWS = (UNET_TRAIN_CLI_BATCH * UNET_TRAIN_VIEWS, UNET_TRAIN_IMAGE_BATCH,
                          UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS)
+# kernel 1's backward, held against its twins in the kernels phase at every
+# shape a trained path gives it: the UNet finetunes' rows (a data-parallel
+# rank's 24, batch 2, 4, the CLIs' 8, the LAION image batch 196, the video
+# batches 16 and 24 of the memory phase) at both token counts, and the LGM's
+BWD_CHECK_ROWS = (24, 48, 96, 192, 196, 384, 576)
+ATTN_BWD_SHAPES = [*(s for rows in BWD_CHECK_ROWS for s in unet_train_bwd_shapes(rows)),
+                   *TRAIN_ATTN_BWD_SHAPES]
+# the backward's log-sum-exp input against its twin's (fp32 both; the same
+# sums in another order, |lse| ~ 7 at S = 1024)
+LSE_TOL = 1e-4
+# the twin's and the fp32 reference's gradients are taken this many rows at
+# a time (attention rows are independent; the fp32 reference holds [rows, H,
+# S, S] logits)
+BWD_CHECK_CHUNK = 48
 # `--phases env,unet_train_memory` takes one step of configs/t2v_train_laion.yaml
 # (EMA on) at each (frames, batch) and prints its peak memory and time, or the
 # out-of-memory error where the card cannot hold it
@@ -378,7 +426,7 @@ SPLAT_TOL = 2e-4
 # splat composite backward vs its twin: max |diff| of dpayload relative to the
 # largest gradient entry (fp32 both; 256-pixel sums in another order)
 SPLAT_BWD_TOL = 2e-4
-# attention / FFN backward (autograd.Function) vs autograd through the plain
+# FFN / fused-block backward (autograd.Function) vs autograd through the plain
 # twin: the same operations on the same inputs, so the difference is rounding
 # of the bf16 upstream gradient at most; relative to the largest entry
 TWIN_BWD_TOL = 1e-3
@@ -395,6 +443,12 @@ UNET_REL_TOL = 5e-2
 # same inputs (teacher forcing): relative max error of its output. The
 # seeded LGM (60 layers of random weights) amplifies bf16 rounding more than
 # the UNet; the render is held to SPLAT_TOL (kernel vs twin, same Gaussians).
+# The two VAE stages run no kernel: they are held against the fp32 arithmetic
+# of the served VAE's own (bf16) weights, so that what they measure is the
+# bf16 path, not the rounding of the weights (their error against the fp32
+# draw, and that rounding's alone, are printed beside them;
+# `--phases env,vae_logits` runs the phase with the VAE's attention logits
+# formed in bf16 as well, on the same inputs).
 REFINE_STAGE_TOL = {"unet": 5e-2, "vae.decode": 5e-2, "lgm": 2.5e-1,
                     "vae.encode_first_stage": 5e-2}
 # End to end the stages' errors chain: the bf16 LGM's Gaussians move by up to
@@ -441,7 +495,8 @@ PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v"
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
 # what each part costs), one child process per build (`ffn_times`).
 EXTRA_PHASES = ("ffn_ablation", "ffn_times", "spatial_ablation", "spatial_times",
-                "splat_bwd_ablation", "splat_bwd_times", "unet_train_memory", "init_cost")
+                "splat_bwd_ablation", "splat_bwd_times", "unet_train_memory", "init_cost",
+                "vae_logits", "train_spread")
 # `--phases env,spatial_ablation` does the same for kernel 5's wgmma kernels at
 # the served I2V shape (the VMV_SP_* switches of csrc/fused_spatial.cu), with
 # each __global__'s share from torch.profiler (`spatial_times`).
@@ -459,7 +514,9 @@ FFN_ABLATIONS = ("", "VMV_NOGELU", "VMV_NOG1", "VMV_NOG2", "VMV_NOLOAD",
 
 
 def fail(phase: str, msg: str) -> None:
+    # on both streams: a caller that keeps only the end of stderr sees why
     print(f"[{phase}] FAIL: {msg}", flush=True)
+    print(f"[{phase}] FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -612,6 +669,15 @@ def _bound(n_bytes, ops, peak_ops):
 def _attn_bound(shape):
     b, s, h, d = shape  # q, k, v read and out written in bf16; QK^T and PV
     return _bound(4 * b * s * h * d * 2, 4 * b * h * s * s * d, PEAK_BF16_FLOPS)
+
+
+def _attn_bwd_bound(shape):
+    """q, k, v, o and dO read, dQ, dK and dV written in bf16, lse read in
+    fp32; the five products (S = QKᵀ, dP = dO Vᵀ, dV, dQ, dK) of 2·S²·D each
+    per (batch, head)."""
+    b, s, h, d = shape
+    return _bound(8 * b * s * h * d * 2 + 4 * b * h * s, 10 * b * h * s * s * d,
+                  PEAK_BF16_FLOPS)
 
 
 def _ffn_bound(t, c, inner):
@@ -1149,8 +1215,8 @@ def _spatial_kernel_checks(torch, dev):
     return runs
 
 
-_ZERO_COUNTS = {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
-                "splat_composite_bwd": 0, "fused_spatial": 0}
+_ZERO_COUNTS = {"flash_attention": 0, "flash_attention_bwd": 0, "geglu_ffn": 0,
+                "splat_composite": 0, "splat_composite_bwd": 0, "fused_spatial": 0}
 
 
 def phase_ffn_times(torch, defines):
@@ -1264,7 +1330,9 @@ def phase_kernels(torch, only=None):
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops import flash_attention as fa
     from videomv_tpu_torch.ops import fused_ffn as ff
-    from videomv_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+    from videomv_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, attention_lse_reference, attention_reference,
+        flash_attention)
     from videomv_tpu_torch.ops.fused_ffn import geglu_ffn, geglu_ffn_reference
 
     dev = torch.device("cuda", 0)
@@ -1273,7 +1341,8 @@ def phase_kernels(torch, only=None):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
-    results = {name: [] for name in ("flash_attention", "geglu_ffn") if chosen(name)}
+    results = {name: [] for name in ("flash_attention", "flash_attention_bwd", "geglu_ffn")
+               if chosen(name)}
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
@@ -1342,23 +1411,79 @@ def phase_kernels(torch, only=None):
             fail("kernels", f"flash_attention {shape} outside its error bound")
         del q, k, v, kern, twin, ref32, qt, kt_, vt
 
-    # backward through the autograd.Function (kernel forward, twin recompute)
-    # against autograd through the twin alone, at the LGM's trained shapes
-    for shape in (((1, 1024, 16, 64), (1, 256, 16, 64)) if chosen("flash_attention") else ()):
-        q, k, v = (randn(*shape).requires_grad_() for _ in range(3))
-        go = randn(*shape)
+    # kernel 1's backward at every trained shape: the backward kernel on the
+    # forward kernel's o and lse against its twin fed the same tensors and
+    # against autograd of the fp32 plain attention (each gradient relative to
+    # its largest entry), BWD_CHECK_CHUNK rows at a time; lse against its twin;
+    # two runs bit-equal; kernel, twin and library (autograd of
+    # scaled_dot_product_attention, which the port never calls) in turns
+    for shape in (ATTN_BWD_SHAPES if chosen("flash_attention_bwd") else ()):
+        q, k, v, go = (randn(*shape) for _ in range(4))
+        o, lse = fa._launch(q, k, v, with_lse=True)
         ops.reset_launch_counts()
-        got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), go)
-        if ops.launch_counts()["flash_attention"] != 1:
-            fail("kernels", f"attention backward {shape}: the forward did not launch")
-        want = torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
-        err = rel_max(got, want)
-        say("kernels", f"flash_attention backward {list(shape)}: dq, dk, dv vs autograd of "
-            f"the twin, relative max {err:.3e} (bound {TWIN_BWD_TOL:.0e}) "
-            f"{'ok' if err <= TWIN_BWD_TOL else 'FAIL'}")
-        if not err <= TWIN_BWD_TOL:
-            fail("kernels", f"flash_attention backward {shape} differs from its twin's")
-        del q, k, v, go, got, want
+        kern = fa._launch_bwd(q, k, v, o, lse, go)
+        torch.cuda.synchronize()
+        if ops.launch_counts_by_shape()["flash_attention_bwd"] != {shape: 1}:
+            fail("kernels", f"attention backward {shape}: launch counter did not move")
+        if not all(torch.equal(a, b) for a, b in zip(fa._launch_bwd(q, k, v, o, lse, go), kern)):
+            fail("kernels", f"attention backward {shape}: two runs differ")
+        names = ("dq", "dk", "dv")
+        acc = {n: [0.0] * 4 for n in names}  # max |k-ref|, |t-ref|, |k-t|, |ref|
+        lse_err = 0.0
+        for r0 in range(0, shape[0], BWD_CHECK_CHUNK):
+            sl = slice(r0, r0 + BWD_CHECK_CHUNK)
+            qc, kc, vc, gc_ = (t[sl] for t in (q, k, v, go))
+            lse_err = max(lse_err, (lse[sl] - attention_lse_reference(qc, kc, vc)[1])
+                          .abs().max().item())
+            twin = attention_backward_reference(qc, kc, vc, o[sl], lse[sl], gc_)
+            f32 = [t.float().requires_grad_() for t in (qc, kc, vc)]
+            ref = torch.autograd.grad(attention_reference(*f32), f32, gc_.float())
+            for n, kg, tg, rg in zip(names, (t[sl] for t in kern), twin, ref):
+                kg, tg = kg.float(), tg.float()
+                a = acc[n]
+                a[0] = max(a[0], (kg - rg).abs().max().item())
+                a[1] = max(a[1], (tg - rg).abs().max().item())
+                a[2] = max(a[2], (kg - tg).abs().max().item())
+                a[3] = max(a[3], rg.abs().max().item())
+            del twin, f32, ref
+        rel = {n: [a[i] / a[3] for i in range(3)] for n, a in acc.items()}
+        k_err = max(r[0] for r in rel.values())
+        t_err = max(r[1] for r in rel.values())
+        kt = max(r[2] for r in rel.values())
+        ok = (all(r[0] <= 2 * r[1] + KERNEL_EPS for r in rel.values()) and kt <= KERNEL_VS_TWIN_TOL
+              and lse_err <= LSE_TOL)
+        ms, plain_ms = _time_turns(torch, lambda: attention_backward_reference(q, k, v, o, lse, go),
+                                   lambda: fa._launch_bwd(q, k, v, o, lse, go), iters=5)
+        qt, kt_, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt_, vt)
+        got_ = go.transpose(1, 2)
+        library_ms = _time_one(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt_, vt), got_, retain_graph=True), 5)
+        bound_ms, bound_by = _attn_bwd_bound(shape)
+        results["flash_attention_bwd"].append(dict(
+            shape=list(shape), calls_per_train_step=TRAIN_ATTN_BWD_SHAPES.get(shape, 0),
+            calls_per_unet_train_step=unet_train_bwd_shapes(
+                UNET_TRAIN_BATCH * UNET_TRAIN_VIEWS).get(shape, 0),
+            calls_per_laion_video_step=unet_train_bwd_shapes(
+                UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS).get(shape, 0),
+            calls_per_laion_image_step=unet_train_bwd_shapes(UNET_TRAIN_IMAGE_BATCH).get(shape, 0),
+            calls_per_dist_train_step=DIST_TRAIN_BY_SHAPE["flash_attention_bwd"].get(shape, 0),
+            err_vs_fp32=k_err, twin_err_vs_fp32=t_err, rel_err_vs_twin=kt,
+            max_abs_err=max(a[2] for a in acc.values()), lse_err=lse_err,
+            errors_by_gradient=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, share_of_bound=bound_ms / ms))
+        say("kernels", f"flash_attention backward {list(shape)} ({100 * bound_ms / ms:.1f}% of "
+            f"its bound): relative to each gradient's largest entry (dq, dk, dv) |k-fp32| "
+            f"{[f'{r[0]:.3e}' for r in rel.values()]} |twin-fp32| "
+            f"{[f'{r[1]:.3e}' for r in rel.values()]} |k-twin| {kt:.3e}; |lse-twin| "
+            f"{lse_err:.3e} (bound {LSE_TOL:.0e}); two runs bit-equal; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library call "
+            f"(scaled_dot_product_attention's backward) {library_ms:.4f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("kernels", f"flash_attention backward {shape} outside its error bound")
+        del q, k, v, go, o, lse, kern, qt, kt_, vt, lib_out, got_
+        torch.cuda.empty_cache()
 
     ffn_shapes = dict.fromkeys([*FFN_SHAPES, *BATCHED_REFINED_BY_SHAPE["geglu_ffn"]])
     for t, c, inner in (ffn_shapes if chosen("geglu_ffn") else ()):
@@ -1497,6 +1622,8 @@ def main(argv=None):
         phase_unet(torch)
     if "refine" in phases:
         phase_refine(torch)
+    if "vae_logits" in phases:
+        phase_vae_logits(torch)
     if "slice" in phases:
         by_path["plain request"], by_path["refined request"] = phase_slice(torch)
     if "profile" in phases:
@@ -1511,6 +1638,8 @@ def main(argv=None):
         by_path[i2v_train_run], by_path[i2v_refine_run] = phase_i2v_train(torch)
     if "unet_train_memory" in phases:
         phase_unet_train_memory(torch)
+    if "train_spread" in phases:
+        phase_train_spread(torch)
     if "dist_train" in phases:
         t0 = time.time()
         by_path[slice_e[0]], by_path[slice_e[1]] = phase_dist_train(torch)
@@ -1533,20 +1662,23 @@ def main(argv=None):
     # One entry per kernel. ms, plain_ms, bound_ms and library_ms are totals
     # over one run of the path named in "path": each shape's time per call
     # (kernels phase) times its calls on that path. The attention kernel and
-    # the two splat kernels are totalled over the train run, the FFN kernel
-    # (which a train step does not launch) over a refined request, the fused
-    # spatial block over a refined I2V request with its flag on. launches
-    # is the count read after that path ran (null unless its phase ran).
+    # the two splat kernels are totalled over the train run, the attention
+    # backward over the UNet train run, the FFN kernel (which a train step
+    # does not launch) over a refined request, the fused spatial block over a
+    # refined I2V request with its flag on. launches is the count read after
+    # that path ran (null unless its phase ran).
     record = []
     for name, runs in kernel_results.items():
         for r in runs:  # slice F's paths (the variants phase), by shape
-            if name in ("flash_attention", "geglu_ffn"):
+            if name in ("flash_attention", "flash_attention_bwd", "geglu_ffn"):
                 r["calls_by_slice_f_path"] = {path: shapes.get(name, {}).get(tuple(r["shape"]), 0)
                                               for path, shapes in VARIANT_CALLS.items()}
         if name == "geglu_ffn":
             path, calls, times = "refined request", "calls_per_request", 1
         elif name == "fused_spatial":
             path, calls, times = "I2V refined request", "calls_per_request", 1
+        elif name == "flash_attention_bwd":
+            path, calls, times = unet_train_run, "calls_per_unet_train_step", UNET_TRAIN_STEPS
         else:
             path, calls, times = train_run, "calls_per_train_step", TRAIN_STEPS
         used = [r for r in runs if r[calls]]
@@ -1804,21 +1936,32 @@ def phase_refine(torch):
         with _TwinComposite():
             render32 = render_gaussians(gauss32, cv, cvp, **rkw)["image"]
         enc_in = log32["vae.encode_first_stage"][0]
+        dec_in = log32["vae.decode"][0]
+        vae_w = copy.deepcopy(pipe.vae).float()  # the served weights, fp32 arithmetic
+        dec16, enc16 = pipe.vae.decode(*dec_in), pipe.vae.encode_first_stage(*enc_in)
         forced = {
             "unet": rel(log16["unet"][1], log32["unet"][1]),  # same inputs already
-            "vae.decode": rel(pipe.vae.decode(*log32["vae.decode"][0]),
-                              log32["vae.decode"][1]),
+            "vae.decode": rel(dec16, vae_w.decode(*dec_in)),
             "lgm": rel(pipe.lgm(*log32["lgm"][0]), gauss32),
             "render": (render16 - render32).abs().max().item(),
-            "vae.encode_first_stage": rel(pipe.vae.encode_first_stage(*enc_in),
-                                          log32["vae.encode_first_stage"][1]),
+            "vae.encode_first_stage": rel(enc16, vae_w.encode_first_stage(*enc_in)),
         }
-    del ref, log16, log32, gauss32, render16, render32, enc_in
+        # against the fp32 draw the bf16 weights were rounded from, and that
+        # rounding alone
+        vae_draw = {"vae.decode": (rel(dec16, log32["vae.decode"][1]),
+                                   rel(vae_w.decode(*dec_in), log32["vae.decode"][1])),
+                    "vae.encode_first_stage": (
+                        rel(enc16, log32["vae.encode_first_stage"][1]),
+                        rel(vae_w.encode_first_stage(*enc_in),
+                            log32["vae.encode_first_stage"][1]))}
+    del ref, log16, log32, gauss32, render16, render32, enc_in, dec_in, vae_w, dec16, enc16
     torch.cuda.empty_cache()
     bounds = dict(REFINE_STAGE_TOL, render=SPLAT_TOL)
     bad = {k: v for k, v in forced.items() if not v <= bounds[k]}
     say("refine", f"teacher-forced stages, bf16 kernels vs fp32 plain (relative max error; "
-        f"render: max|d| kernel vs twin): {forced}, bounds {bounds}; {time.time() - t0:.1f}s")
+        f"render: max|d| kernel vs twin; the VAE stages against the served weights in "
+        f"fp32): {forced}, bounds {bounds}; the VAE stages against the fp32 draw, and the "
+        f"bf16 rounding of the weights alone: {vae_draw}; {time.time() - t0:.1f}s")
     if not torch.isfinite(cond16).all() or tuple(cond16.shape) != (1, 4, 24, 32, 32):
         fail("refine", f"refined latents {tuple(cond16.shape)} not finite or misshapen")
     if not torch.equal(cond16, uncond16):
@@ -1831,6 +1974,27 @@ def phase_refine(torch):
         fail("refine", f"stages outside their bounds: {bad}")
     if not rms <= REFINE_L2_TOL:
         fail("refine", f"relative L2 error {rms:.3e} above {REFINE_L2_TOL}")
+
+
+def phase_vae_logits(torch):
+    """The refine phase twice on the same inputs: with the VAE's attention
+    logits formed as a bf16 product (as before they kept fp32) and as they
+    are, fp32 (``fp32_logits``). Only the VAE's logits change, so the text
+    conditioning and every stage's input are the same in both runs; a
+    stage outside its bound is printed, not raised."""
+    from videomv_tpu_torch.models import autoencoder
+
+    fp32_logits = autoencoder.fp32_logits
+    for tag, logits in (("bf16 product", lambda eq, a, b: torch.einsum(eq, a, b).float()),
+                        ("fp32 (served)", fp32_logits)):
+        autoencoder.fp32_logits = logits
+        say("vae_logits", f"the refine phase with the VAE's attention logits as a {tag}:")
+        try:
+            phase_refine(torch)
+        except SystemExit:
+            pass
+        finally:
+            autoencoder.fp32_logits = fp32_logits
 
 
 def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None, want=None,
@@ -1873,7 +2037,8 @@ def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None, want=None
             f"launches {counts}{pairs}")
         if counts != want:
             fail("slice", f"{tag}: expected launches {want}, got {counts}")
-        if by_shape is not None and shapes != dict(by_shape, fused_spatial=fused_by_shape or {}):
+        if by_shape is not None and shapes != dict(by_shape, flash_attention_bwd={},
+                                                   fused_spatial=fused_by_shape or {}):
             fail("slice", f"{tag}: expected launches by shape {by_shape}, got {shapes}")
         if shapes["fused_spatial"] != (fused_by_shape or {}):
             fail("slice", f"{tag}: expected fused launches by shape {fused_by_shape or {}}, got "
@@ -2418,15 +2583,9 @@ def phase_train(torch):
     if (opt.output_size, trainer._step_kwargs["view_chunk"]) != (TRAIN_RENDER_SIZE,
                                                                 TRAIN_VIEW_CHUNK):
         fail("train", "the shipped config no longer renders 512² in chunks of 2 views")
-    def checksum(module):
-        """Exact integer sums of every parameter's bits: equal before and
-        after means bit-identical (up to a collision of sums)."""
-        return [p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
-                .long().sum().item() for p in module.parameters()]
-
     towers = (("unet", trainer.unet), ("vae", trainer.vae), ("clip", trainer.clip),
               ("lpips", trainer.lpips))
-    frozen = {n: checksum(m) for n, m in towers}
+    frozen = {n: _module_checksum(torch, m) for n, m in towers}
     before = [p.detach().cpu() for p in trainer.lgm.parameters()]  # kept on the host
 
     # ---- the main path: TRAIN_STEPS steps through T2VTrainer.train
@@ -2455,12 +2614,14 @@ def phase_train(torch):
     demanded = [x for p in pair_log.renders for x in p.tolist()]
     say("train", f"{TRAIN_STEPS} steps at batch 1 in {run_s:.3f} s (the first includes warm-up), "
         f"peak {peak:.2f} GiB, (loss, psnr, lpips) per step {vals}, launches {counts}, attention "
-        f"launches by shape {shapes['flash_attention']}; demanded "
+        f"launches by shape {shapes['flash_attention']}, its backward's "
+        f"{shapes['flash_attention_bwd']}; demanded "
         f"pairs per rendered view min/max {min(demanded)}/{max(demanded)} of capacity {cap}")
     want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
     if counts != want:
         fail("train", f"expected launches {want} over {TRAIN_STEPS} steps, got {counts}")
     want = {"flash_attention": {k: v * TRAIN_STEPS for k, v in TRAIN_ATTN_SHAPES.items()},
+            "flash_attention_bwd": {k: v * TRAIN_STEPS for k, v in TRAIN_ATTN_BWD_SHAPES.items()},
             "geglu_ffn": {}, "fused_spatial": {}}
     if shapes != want:
         fail("train", f"expected launches by shape {want}, got {shapes}")
@@ -2469,13 +2630,14 @@ def phase_train(torch):
     if last != vals[-1][0] or trainer.lgm_state.step != TRAIN_STEPS:
         fail("train", "train() did not return the last step's loss after TRAIN_STEPS steps")
     if threading.active_count() != n_threads:
-        fail("train", "the prefetch worker outlived train()")
+        fail("train", f"the prefetch worker outlived train(): {n_threads} threads before, "
+             f"{[t.name for t in threading.enumerate()]} after")
     moved = max((a - b.detach().cpu()).abs().max().item()
                 for a, b in zip(before, trainer.lgm.parameters()))
     if not moved > 0:
         fail("train", "the LGM parameters did not change")
     for name, module in towers:
-        if frozen[name] != checksum(module):
+        if frozen[name] != _module_checksum(torch, module):
             fail("train", f"the frozen {name} changed")
     say("train", f"LGM parameters moved by up to {moved:.3e}; UNet, VAE, CLIP and LPIPS "
         f"bit-identical; optimizer count {trainer.lgm_state.optimizer.count}")
@@ -2608,7 +2770,8 @@ def phase_train(torch):
             fail("train", f"the twin render launched kernels: {ops.launch_counts()}")
     dg_err = ((dg_k - dg_t).abs().max() / dg_t.abs().max()).item()
     say("train", f"d loss / d Gaussians (8 views at 512², MSE + alpha + LPIPS) through kernels "
-        f"3 + 4 vs through their twins, same Gaussians: loss {loss_k:.6f} vs {loss_t:.6f}, "
+        f"3 + 4 vs through their twins, same Gaussians: loss {loss_k:.6f} vs {loss_t:.6f} "
+        f"(|d|/|ref| {abs(loss_k - loss_t) / abs(loss_t):.3e}, bound 1e-04), "
         f"max|d|/max|ref| {dg_err:.3e} (bound {TRAIN_DGAUSS_TOL:.0e}), max|ref| "
         f"{dg_t.abs().max().item():.3e}")
     if not dg_err <= TRAIN_DGAUSS_TOL or not abs(loss_k - loss_t) <= 1e-4 * abs(loss_t):
@@ -2675,6 +2838,134 @@ def phase_train(torch):
     return counts
 
 
+def phase_train_spread(torch):
+    """The train phase's two data-dependent gradient checks (d loss / d
+    Gaussians through kernels 3 + 4 against their twins; the bf16 LGM
+    gradient against fp32) on TRAIN_SPREAD_DRAWS draws of the step's
+    randoms after the phase's TRAIN_STEPS steps: how far each reading
+    spreads below its bound from run to run. It holds no reading to its
+    bound: it prints them all and their extremes."""
+    from videomv_tpu_torch.config import load_config
+    from videomv_tpu_torch.data.datasets import SyntheticMVDataset, batch_iterator
+    from videomv_tpu_torch.training.engine import T2VTrainer
+    from videomv_tpu_torch.training.lgm_refine import build_lgm_refine_step, draw_refine_randoms
+
+    os.chdir(ROOT)
+    trainer = T2VTrainer(load_config("configs/t2v_train.yaml", opts=TRAIN_OPTS),
+                         device="cuda").init(zero_init=False)
+    trainer.train(num_steps=TRAIN_STEPS, batch_size=1)
+    opt, lgm = trainer.lgm.opt, trainer.lgm
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames), 1))
+    feats = trainer.encode_batch(host)
+    feats.update(trainer._gs_features(host))
+    plain = build_lgm_refine_step(trainer.unet_apply, trainer.vae, lgm, trainer.diffusion,
+                                  **dict(trainer._step_kwargs, autocast_dtype=None))
+
+    def lgm_grads(step, prep):
+        trainer.lgm_state.optimizer.zero_grad()
+        step.loss_from(prep)[0].backward()
+        flat = torch.cat([p.grad.flatten() for p in lgm.parameters()])
+        trainer.lgm_state.optimizer.zero_grad()
+        return flat
+
+    dg, dl, cos, ratio = [], [], [], []
+    for i in range(TRAIN_SPREAD_DRAWS):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        prep = trainer.refine_step.prepare(feats, draw_refine_randoms(
+            gen, feats["latents"], trainer.diffusion, opt.num_input_views,
+            opt.num_views - opt.num_input_views))
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            gauss = lgm(prep["lgm_in"]).float()
+
+        def dgauss():
+            g = gauss.clone().requires_grad_()
+            loss, _ = trainer.refine_step.loss_from(prep, gaussians=g)
+            return loss.item(), torch.autograd.grad(loss, g)[0]
+
+        loss_k, dg_k = dgauss()
+        with _TwinSplat():
+            loss_t, dg_t = dgauss()
+        dg.append(((dg_k - dg_t).abs().max() / dg_t.abs().max()).item())
+        dl.append(abs(loss_k - loss_t) / abs(loss_t))
+        if i % 3 == 0:
+            g16 = lgm_grads(trainer.refine_step, prep)
+            with _TwinSplat():
+                g32 = lgm_grads(plain, prep)
+            cos.append((torch.dot(g16, g32) / (g16.norm() * g32.norm())).item())
+            ratio.append((g16.norm() / g32.norm()).item())
+            del g16, g32
+        del prep, gauss, dg_k, dg_t
+    say("train_spread", f"{TRAIN_SPREAD_DRAWS} draws after {TRAIN_STEPS} steps: d loss / d "
+        f"Gaussians max|d|/max|ref| {[f'{x:.3e}' for x in dg]}")
+    srt = sorted(dg)
+    say("train_spread", f"d loss / d Gaussians: median {srt[len(srt) // 2]:.3e}, largest "
+        f"{srt[-3:]} (bound {TRAIN_DGAUSS_TOL:.0e}); loss |d|/|ref| largest {max(dl):.3e} "
+        f"(bound 1e-04); LGM gradient ({len(cos)} draws) cosine smallest {min(cos):.4f} "
+        f"(bound >= {TRAIN_GRAD_MIN_COS}), |g16|/|g32| {min(ratio):.4f} .. {max(ratio):.4f} "
+        f"(bound {TRAIN_GRAD_NORM_RATIO})")
+    del trainer, plain, feats
+    torch.cuda.empty_cache()
+
+
+def _step_by_parts(torch, trainer, host, gen, p_zero, rows, n):
+    """``n`` finetune steps of ``trainer`` on the host batch ``host`` by parts
+    under CUDA events (encode, forward, backward with the recompute, the
+    optimizer, an EMA lerp over a copy of the UNet), printed with their
+    median and the host wall of each step."""
+    from videomv_tpu_torch.parallel import draw_train_randoms
+    from videomv_tpu_torch.parallel.train_step import _dropout_stream
+
+    unet, opt = trainer.unet, trainer.state.optimizer
+    ema = [p.detach().clone() for p in unet.parameters()]  # the EMA lerp, timed alone
+    runs, walls = [], []
+    for _ in range(n):
+        timers = _EventTimers(torch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with timers(f"encode (VAE {rows} frames + text)"):
+            feats = trainer.encode_batch(host)
+        draws = draw_train_randoms(gen, feats["latents"], trainer.diffusion, p_zero)
+        opt.zero_grad()
+        with _dropout_stream(gen):
+            with timers("forward (q_sample, UNet, loss)"):
+                loss = trainer.train_step.loss_fn(feats, draws)
+            with timers("backward (recompute + grads)"):
+                loss.backward()
+        with timers("optimizer (AdamW, key scale)"):
+            opt.step()
+        with timers("EMA lerp"), torch.no_grad():
+            torch._foreach_mul_(ema, 0.9999)
+            torch._foreach_add_(ema, [p.detach() for p in unet.parameters()], alpha=1e-4)
+        del feats, draws, loss
+        runs.append(timers.ms())
+        walls.append((time.perf_counter() - t1) * 1e3)
+    trainer.state.step += n
+    del ema
+    parts = {k: sorted(r[k] for r in runs)[n // 2] for k in runs[0]}
+    say("unet_train", f"CUDA events, one step at {rows} rows by part (median of {n}): "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f} ms; host wall of the step, median "
+        f"{sorted(walls)[n // 2]:.2f} ms (walls {[round(w, 2) for w in walls]})")
+    return parts
+
+
+def _bits_checksum(torch, t):
+    """Two integer sums of a tensor's bits, the plain one and one weighted by
+    each element's position modulo a prime: equal before and after means
+    bit-identical up to a collision of both. (The plain sum alone collides
+    when an optimizer step moves the elements of a small tensor by equal
+    numbers of units in the last place in both directions, as AdamW's first
+    steps of ±lr do.)"""
+    bits = t.detach().view(torch.int16 if t.element_size() == 2 else torch.int32).long().flatten()
+    weights = torch.arange(bits.numel(), device=bits.device) % 8191 + 1
+    return bits.sum().item(), (bits * weights).sum().item()
+
+
+def _module_checksum(torch, module):
+    return [_bits_checksum(torch, p) for p in module.parameters()]
+
+
 def _write_laion_shard(path, n, seed=0):
     """A LAION-style tar shard of ``n`` (jpg, txt, json) samples of seeded
     noise images that pass the reader's filters."""
@@ -2716,7 +3007,6 @@ def phase_unet_train(torch):
     from videomv_tpu_torch.data.datasets import SyntheticMVDataset, batch_iterator
     from videomv_tpu_torch.ops.flash_attention import attention_reference
     from videomv_tpu_torch.parallel import build_train_step, draw_train_randoms, make_t2v_apply
-    from videomv_tpu_torch.parallel.train_step import _dropout_stream
     from videomv_tpu_torch.training.__main__ import main as train_cli
     from videomv_tpu_torch.training.engine import T2VTrainer
 
@@ -2742,14 +3032,8 @@ def phase_unet_train(torch):
             or trainer.max_frames != UNET_TRAIN_VIEWS or not n_unet > 1.4e9):
         fail("unet_train", "configs/t2v_train.yaml no longer ships the full-width UNet finetune")
 
-    def checksum(module):
-        """Exact integer sums of every parameter's bits: equal before and
-        after means bit-identical (up to a collision of sums)."""
-        return [p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
-                .long().sum().item() for p in module.parameters()]
-
-    frozen = {n: checksum(getattr(trainer, n)) for n in ("vae", "clip")}
-    before = checksum(unet)
+    frozen = {n: _module_checksum(torch, getattr(trainer, n)) for n in ("vae", "clip")}
+    before = _module_checksum(torch, unet)
 
     # ---- the main path: UNET_TRAIN_STEPS steps through T2VTrainer.train
     losses = []
@@ -2776,13 +3060,12 @@ def phase_unet_train(torch):
     rows = UNET_TRAIN_BATCH * UNET_TRAIN_VIEWS
     say("unet_train", f"{UNET_TRAIN_STEPS} steps at batch {UNET_TRAIN_BATCH} ({rows} rows) in "
         f"{run_s:.3f} s (the first includes warm-up), peak {peak:.2f} GiB, loss per step "
-        f"{vals}, launches {counts}, attention launches by shape {shapes['flash_attention']}")
+        f"{vals}, launches {counts}, attention launches by shape {shapes['flash_attention']}, "
+        f"its backward's {shapes['flash_attention_bwd']}")
     want = {k: v * UNET_TRAIN_STEPS for k, v in UNET_TRAIN_LAUNCHES.items()}
     if counts != want:
         fail("unet_train", f"expected launches {want}, got {counts}")
-    want = {"flash_attention": {k: v * UNET_TRAIN_STEPS
-                                for k, v in unet_train_attn_shapes(rows).items()},
-            "geglu_ffn": {}, "fused_spatial": {}}
+    want = unet_train_by_shape(rows, UNET_TRAIN_STEPS)
     if shapes != want:
         fail("unet_train", f"expected launches by shape {want}, got {shapes}")
     if len(vals) != UNET_TRAIN_STEPS or not all(v == v and abs(v) < 1e30 for v in vals):
@@ -2790,13 +3073,15 @@ def phase_unet_train(torch):
     if last != vals[-1] or trainer.state.step != UNET_TRAIN_STEPS:
         fail("unet_train", "train() did not return the last loss after UNET_TRAIN_STEPS steps")
     if threading.active_count() != n_threads:
-        fail("unet_train", "the prefetch worker outlived train()")
-    after = checksum(unet)
-    still = sum(a == b for a, b in zip(before, after))
+        fail("unet_train", f"the prefetch worker outlived train(): {n_threads} threads before, "
+             f"{[t.name for t in threading.enumerate()]} after")
+    after = _module_checksum(torch, unet)
+    still = [n for (n, _), a, b in zip(unet.named_parameters(), before, after) if a == b]
     if still:
-        fail("unet_train", f"{still} of {len(after)} UNet parameters did not move")
+        fail("unet_train", f"{len(still)} of {len(after)} UNet parameters did not move: "
+             f"{still[:10]}")
     for name, sums in frozen.items():
-        if sums != checksum(getattr(trainer, name)):
+        if sums != _module_checksum(torch, getattr(trainer, name)):
             fail("unet_train", f"the frozen {name} changed")
     say("unet_train", f"all {len(after)} UNet parameter tensors moved; VAE and text tower "
         f"bit-identical; optimizer count {opt.count}")
@@ -2807,37 +3092,8 @@ def phase_unet_train(torch):
                                                   max_frames=trainer.max_frames),
                                UNET_TRAIN_BATCH))
     gen = torch.Generator(device=dev).manual_seed(3)
-    ema = [p.detach().clone() for p in unet.parameters()]  # the EMA lerp, timed alone
     p_zero = float(cfg.get("p_zero", 0.1))
-    runs, walls = [], []
-    for _ in range(3):
-        timers = _EventTimers(torch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        with timers(f"encode (VAE {rows} frames + text)"):
-            feats = trainer.encode_batch(host)
-        draws = draw_train_randoms(gen, feats["latents"], trainer.diffusion, p_zero)
-        opt.zero_grad()
-        with _dropout_stream(gen):
-            with timers("forward (q_sample, UNet, loss)"):
-                loss = trainer.train_step.loss_fn(feats, draws)
-            with timers("backward (recompute + grads)"):
-                loss.backward()
-        with timers("optimizer (AdamW, key scale)"):
-            opt.step()
-        with timers("EMA lerp"), torch.no_grad():
-            torch._foreach_mul_(ema, 0.9999)
-            torch._foreach_add_(ema, [p.detach() for p in unet.parameters()], alpha=1e-4)
-        ms = timers.ms()
-        walls.append((time.perf_counter() - t1) * 1e3)
-        runs.append(ms)
-    trainer.state.step += 3
-    del ema, loss
-    parts = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
-    say("unet_train", "CUDA events, one step by part (median of 3): " + "; ".join(
-        f"{k} {v:.2f} ms" for k, v in parts.items())
-        + f"; sum {sum(parts.values()):.2f} ms; host wall of the step, median "
-        f"{sorted(walls)[1]:.2f} ms (walls {[round(w, 2) for w in walls]})")
+    _step_by_parts(torch, trainer, host, gen, p_zero, rows, 3)
 
     # ---- the device busy share of whole steps under torch.profiler
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2870,7 +3126,10 @@ def phase_unet_train(torch):
             print(f"  {ms / 2:9.3f} ms/step  {name[:110]}", flush=True)
     del prof, kernels
 
-    # ---- what the attention twin's backward costs, alone, at the step's shapes
+    # ---- what the attention's forward and backward cost, alone, at the
+    # step's shapes: kernel 1 (forward, then forward + backward kernel) against
+    # the plain twin's forward + autograd backward, each with its peak above
+    # the inputs
     pieces = {}
     for shape in unet_train_attn_shapes(rows):
         g2 = torch.Generator(device=dev).manual_seed(1)
@@ -2880,16 +3139,18 @@ def phase_unet_train(torch):
         with torch.no_grad():
             pieces[f"kernel 1 forward {shape}"] = _time_one(
                 torch, lambda: ops.flash_attention.flash_attention(q, k, v), 5)
-        pieces[f"twin forward + backward {shape}"] = _time_one(
-            torch, lambda: torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go), 3)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
-        pieces[f"twin backward peak GiB {shape}"] = (
-            torch.cuda.max_memory_allocated() - base) / 2**30
+        for name, fn in (("kernel 1", ops.flash_attention.flash_attention),
+                         ("twin", attention_reference)):
+            pieces[f"{name} forward + backward {shape}"] = _time_one(
+                torch, lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), go), 3)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.autograd.grad(fn(q, k, v), (q, k, v), go)
+            pieces[f"{name} forward + backward peak GiB {shape}"] = (
+                torch.cuda.max_memory_allocated() - base) / 2**30
         del q, k, v, go
     say("unet_train", "attention alone at the step's shapes (10 calls of each a step, each "
-        "forward twice, one twin backward): " + "; ".join(
+        "forward twice, one backward): " + "; ".join(
             f"{k} {v:.3f}" + ("" if "GiB" in k else " ms") for k, v in pieces.items()))
 
     # ---- one step's UNet gradient: bf16 autocast + kernel 1 vs fp32 + plain
@@ -2910,12 +3171,12 @@ def phase_unet_train(torch):
 
     ops.reset_launch_counts()
     loss16, g16 = unet_grad(trainer.train_step.loss_fn)
-    k16 = ops.launch_counts()["flash_attention"]
+    k16 = ops.launch_counts()
     plain = build_train_step(make_t2v_apply(unet), trainer.diffusion, use_ema=False,
                              p_zero=p_zero, zero_y=trainer.zero_y, autocast_dtype=None)
     ops.reset_launch_counts()
     loss32, g32 = unet_grad(plain.loss_fn)
-    if any(ops.launch_counts().values()) or k16 != UNET_TRAIN_LAUNCHES["flash_attention"]:
+    if any(ops.launch_counts().values()) or k16 != UNET_TRAIN_LAUNCHES:
         fail("unet_train", f"launches: bf16 step {k16}, fp32 step {ops.launch_counts()}")
     for m, p in dropouts:
         m.p = p
@@ -3002,36 +3263,55 @@ def phase_unet_train(torch):
     if int(shipped["1"]) != UNET_TRAIN_IMAGE_BATCH:
         fail("unet_train", f"configs/t2v_train_laion.yaml ships image batch {shipped['1']}")
     t1 = time.time()
+    if int(shipped["24"]) != UNET_TRAIN_LAION_BATCH:
+        fail("unet_train", f"configs/t2v_train_laion.yaml ships video batch {shipped['24']}")
     trainer = T2VTrainer(laion, device="cuda").init(zero_init=False)
-    seen = []
+    seen, step_s = [], []
     step_fn = trainer.train_step
 
     def shape_step(state, feats, **kw):
         seen.append(tuple(feats["latents"].shape))
-        return step_fn(state, feats, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = step_fn(state, feats, **kw)
+        torch.cuda.synchronize()
+        step_s.append(round(time.perf_counter() - t2, 3))
+        return out
     trainer.train_step = shape_step
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    loss = trainer.train(num_steps=UNET_TRAIN_LAION_STEPS, batch_size=UNET_TRAIN_LAION_BATCH)
+    loss = trainer.train(num_steps=UNET_TRAIN_LAION_STEPS)  # the shipped batch_sizes
     torch.cuda.synchronize()
     counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
     n_img = sum(1 for s in seen if s[2] == 1)
     say("unet_train", f"configs/t2v_train_laion.yaml (EMA {trainer.state.ema is not None}), "
         f"{UNET_TRAIN_LAION_STEPS} steps, image_every {UNET_TRAIN_IMAGE_EVERY} (shipped "
-        f"{load_config('configs/t2v_train_laion.yaml').image_every}), video batch "
-        f"{UNET_TRAIN_LAION_BATCH} and image batch {UNET_TRAIN_IMAGE_BATCH} (shipped "
-        f"{dict(shipped)}): latents per step {seen}, final loss {loss:.6f}, launches "
-        f"{counts}, attention by shape {shapes['flash_attention']}, peak "
+        f"{load_config('configs/t2v_train_laion.yaml').image_every}), the shipped batches "
+        f"{dict(shipped)}: latents per step {seen}, step seconds (host, synchronised, the "
+        f"first of each shape includes warm-up) {step_s}, final loss {loss:.6f}, launches "
+        f"{counts}, attention by shape {shapes['flash_attention']}, its backward's "
+        f"{shapes['flash_attention_bwd']}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {time.time() - t1:.1f}s with init")
     n_vid = UNET_TRAIN_LAION_STEPS - n_img
-    want = dict(unet_train_attn_shapes(UNET_TRAIN_IMAGE_BATCH))
-    want = {k: v * n_img for k, v in want.items()}
-    for k, v in unet_train_attn_shapes(UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS).items():
-        want[k] = want.get(k, 0) + v * n_vid
+    want = unet_train_by_shape(UNET_TRAIN_IMAGE_BATCH, n_img)
+    for name, by in unet_train_by_shape(UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS, n_vid).items():
+        for k, v in by.items():
+            want[name][k] = want[name].get(k, 0) + v
     if (n_img != UNET_TRAIN_LAION_STEPS // UNET_TRAIN_IMAGE_EVERY
-            or shapes["flash_attention"] != want or not loss == loss):
-        fail("unet_train", f"joint LAION run: expected attention launches {want} with "
+            or {s[0] for s in seen} != {UNET_TRAIN_LAION_BATCH, UNET_TRAIN_IMAGE_BATCH}
+            or shapes != want or not loss == loss):
+        fail("unet_train", f"joint LAION run: expected launches by shape {want} with "
              f"{UNET_TRAIN_LAION_STEPS // UNET_TRAIN_IMAGE_EVERY} image steps")
+    # one video step at the shipped batch by parts, and its peak
+    trainer.train_step = step_fn
+    host = next(batch_iterator(SyntheticMVDataset(resolution=tuple(trainer.resolution),
+                                                  max_frames=trainer.max_frames),
+                               UNET_TRAIN_LAION_BATCH))
+    torch.cuda.reset_peak_memory_stats()
+    _step_by_parts(torch, trainer, host, torch.Generator(device=trainer.device).manual_seed(4),
+                   float(laion.get("p_zero", 0.1)), UNET_TRAIN_LAION_BATCH * UNET_TRAIN_VIEWS, 1)
+    say("unet_train", f"peak of that step (EMA and AdamW state resident) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del trainer, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -3098,15 +3378,9 @@ def phase_i2v_train(torch):
             or trainer.max_frames != UNET_TRAIN_VIEWS):
         fail("i2v_train", f"{I2V_TRAIN_CFG} no longer ships the full-width I2V finetune")
 
-    def checksum(module):
-        """Exact integer sums of every parameter's bits: equal before and
-        after means bit-identical (up to a collision of sums)."""
-        return [p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
-                .long().sum().item() for p in module.parameters()]
-
-    frozen = {n: checksum(getattr(trainer, n)) for n in ("vae", "clip")}
-    before = checksum(unet)
-    ema_before = [e.detach().view(torch.int32).long().sum().item() for e in trainer.state.ema]
+    frozen = {n: _module_checksum(torch, getattr(trainer, n)) for n in ("vae", "clip")}
+    before = _module_checksum(torch, unet)
+    ema_before = [_bits_checksum(torch, e) for e in trainer.state.ema]
 
     # ---- (a) the main path: I2V_TRAIN_STEPS steps through T2VTrainer.train
     t0 = time.time()
@@ -3138,9 +3412,7 @@ def phase_i2v_train(torch):
     want = {k: v * I2V_TRAIN_STEPS for k, v in UNET_TRAIN_LAUNCHES.items()}
     if counts != want:
         fail("i2v_train", f"expected launches {want}, got {counts}")
-    want = {"flash_attention": {k: v * I2V_TRAIN_STEPS
-                                for k, v in unet_train_attn_shapes(rows).items()},
-            "geglu_ffn": {}, "fused_spatial": {}}
+    want = unet_train_by_shape(rows, I2V_TRAIN_STEPS)
     if shapes != want:
         fail("i2v_train", f"expected launches by shape {want}, got {shapes}")
     if len(vals) != I2V_TRAIN_STEPS or not all(v == v and abs(v) < 1e30 for v in vals):
@@ -3148,16 +3420,17 @@ def phase_i2v_train(torch):
     if last != vals[-1] or trainer.state.step != I2V_TRAIN_STEPS:
         fail("i2v_train", "train() did not return the last loss after I2V_TRAIN_STEPS steps")
     if threading.active_count() != n_threads:
-        fail("i2v_train", "the prefetch worker outlived train()")
-    after = checksum(unet)
+        fail("i2v_train", f"the prefetch worker outlived train(): {n_threads} threads before, "
+             f"{[t.name for t in threading.enumerate()]} after")
+    after = _module_checksum(torch, unet)
     still = sum(a == b for a, b in zip(before, after))
-    ema_after = [e.detach().view(torch.int32).long().sum().item() for e in trainer.state.ema]
+    ema_after = [_bits_checksum(torch, e) for e in trainer.state.ema]
     ema_still = sum(a == b for a, b in zip(ema_before, ema_after))
     # an EMA tensor whose step is below its float32 ulp at decay 0.9999 may stay
     if still or ema_still == len(after):
         fail("i2v_train", f"{still} UNet and {ema_still} EMA tensors of {len(after)} did not move")
     for name, sums in frozen.items():
-        if sums != checksum(getattr(trainer, name)):
+        if sums != _module_checksum(torch, getattr(trainer, name)):
             fail("i2v_train", f"the frozen {name} changed")
     say("i2v_train", f"all {len(after)} UNet parameter tensors moved, their EMA "
         f"{len(after) - ema_still}; VAE and text + visual towers bit-identical; optimizer count "
@@ -3241,12 +3514,12 @@ def phase_i2v_train(torch):
 
     ops.reset_launch_counts()
     loss16, g16 = unet_grad(trainer.train_step.loss_fn)
-    k16 = ops.launch_counts()["flash_attention"]
+    k16 = ops.launch_counts()
     plain = build_train_step(make_i2v_apply(unet), trainer.diffusion, use_ema=False,
                              p_zero=p_zero, zero_y=trainer.zero_y, autocast_dtype=None)
     ops.reset_launch_counts()
     loss32, g32 = unet_grad(plain.loss_fn)
-    if any(ops.launch_counts().values()) or k16 != UNET_TRAIN_LAUNCHES["flash_attention"]:
+    if any(ops.launch_counts().values()) or k16 != UNET_TRAIN_LAUNCHES:
         fail("i2v_train", f"launches: bf16 step {k16}, fp32 step {ops.launch_counts()}")
     for m, p in zip(dropouts, kept):
         m.p = p
@@ -3317,7 +3590,7 @@ def phase_i2v_train(torch):
         fail("i2v_train", "the I2V refine no longer renders 512² in chunks of 2 views")
     t0 = time.time()
     lgm_before = [p.detach().to("cpu", copy=True) for p in trainer.lgm.parameters()]
-    unet_sums = checksum(trainer.unet)
+    unet_sums = _module_checksum(torch, trainer.unet)
     rlosses = []
     rstep = trainer.refine_step
 
@@ -3344,6 +3617,8 @@ def phase_i2v_train(torch):
     if refine_counts != want:
         fail("i2v_train", f"refine: expected launches {want}, got {refine_counts}")
     want = {"flash_attention": {k: v * I2V_TRAIN_STEPS for k, v in TRAIN_ATTN_SHAPES.items()},
+            "flash_attention_bwd": {k: v * I2V_TRAIN_STEPS
+                                    for k, v in TRAIN_ATTN_BWD_SHAPES.items()},
             "geglu_ffn": {}, "fused_spatial": {}}
     if shapes != want:
         fail("i2v_train", f"refine: expected launches by shape {want}, got {shapes}")
@@ -3351,7 +3626,7 @@ def phase_i2v_train(torch):
         fail("i2v_train", f"refine: non-finite loss in {vals}")
     moved = max((a - b.detach().cpu()).abs().max().item()
                 for a, b in zip(lgm_before, trainer.lgm.parameters()))
-    if not moved > 0 or checksum(trainer.unet) != unet_sums:
+    if not moved > 0 or _module_checksum(torch, trainer.unet) != unet_sums:
         fail("i2v_train", "refine: the LGM did not move or the frozen I2V UNet changed")
     del lgm_before
 
@@ -3544,7 +3819,8 @@ def phase_unet_train_memory(torch):
     """One step of configs/t2v_train_laion.yaml as shipped (EMA on) at each
     (frames, batch) of UNET_TRAIN_MEMORY_BATCHES: its peak memory and wall,
     or the first line of the out-of-memory error. A measurement of what the
-    card holds, not a path: the error is printed, not raised."""
+    card holds: the error is printed, and fails the phase only at the
+    config's own batches."""
     import gc
 
     from videomv_tpu_torch.config import load_config
@@ -3573,6 +3849,8 @@ def phase_unet_train_memory(torch):
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         except torch.cuda.OutOfMemoryError as e:
             out = f"out of memory: {str(e).splitlines()[0]}"
+            if int(cfg.batch_sizes.get(str(frames), 0)) == batch:
+                fail("unet_train_memory", f"the shipped batch {batch} at f = {frames}: {out}")
         trainer.state.optimizer.zero_grad()
         del host
         gc.collect()
@@ -3898,7 +4176,8 @@ def phase_batched_serving(torch):
             peak = torch.cuda.max_memory_allocated() / 2**30
             out_counts[refine] = counts
             # as many launches as one request, each over twice the rows
-            if counts != want or shapes != dict(batch_shapes, fused_spatial={}):
+            if counts != want or shapes != dict(batch_shapes, flash_attention_bwd={},
+                                                fused_spatial={}):
                 fail("batched_serving", f"{tag} batch: expected {want} by shape {batch_shapes}, "
                      f"got {counts} / {shapes}")
             fr = out["frames"]
@@ -4009,10 +4288,12 @@ def _multirank_rank(rank, n, steps, serve_path, train_path):
     cap = _GradCapture(torch, unet, keep=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     loss = step(TrainState(0, unet, cap), feats, draws=draws)
     torch.cuda.synchronize()
     out["step_s"] = time.perf_counter() - t0
+    out["step_launches"] = ops.launch_counts_by_shape()
     # numpy: a CPU tensor would travel to the parent as a shared-memory handle
     # that dies with this process
     out["loss"], out["grad_norm"], out["grad_sample"] = loss.item(), cap.norm, cap.sample.numpy()
@@ -4089,6 +4370,11 @@ def phase_multirank(torch):
         fail("multirank", "the frame-parallel request disagrees with one rank")
     if {k: v for k, v in got.items() if v} != {k: v for k, v in want.items() if v}:
         fail("multirank", f"expected rank 0's launches by shape {want}, got {got}")
+    want = unet_train_by_shape(UNET_TRAIN_VIEWS)  # a row a rank
+    say("multirank", f"data-parallel step, launches by shape per rank "
+        f"{[o['step_launches'] for o in res]}")
+    if any(o["step_launches"] != want for o in res):
+        fail("multirank", f"expected each rank's step launches by shape {want}")
     plain = torch.load(MULTIRANK_TRAIN, map_location="cpu", mmap=True, weights_only=True)
     ref_loss = plain["loss"]
     rel = abs(res[0]["loss"] - ref_loss) / abs(ref_loss)
@@ -4181,10 +4467,12 @@ def _plan_launches(kw, rows, hw, forwards=1):
 
 
 def _checked_shapes():
-    """Kernels 1 and 2's shapes the kernels phase holds against their twins."""
+    """Kernels 1 (forward and backward) and 2's shapes the kernels phase
+    holds against their twins."""
     return {"flash_attention": {*ATTN_SHAPES, *BATCHED_REFINED_BY_SHAPE["flash_attention"],
                                 *(s for rows in UNET_TRAIN_CHECK_ROWS
                                   for s in unet_train_attn_shapes(rows))},
+            "flash_attention_bwd": set(ATTN_BWD_SHAPES),
             "geglu_ffn": {*FFN_SHAPES, *BATCHED_REFINED_BY_SHAPE["geglu_ffn"]}}
 
 
@@ -4195,7 +4483,7 @@ def _launched(torch, phase, what, want=None):
 
     counts, shapes = ops.launch_counts(), ops.launch_counts_by_shape()
     checked = _checked_shapes()
-    for name in ("flash_attention", "geglu_ffn"):
+    for name in ("flash_attention", "flash_attention_bwd", "geglu_ffn"):
         new = set(shapes[name]) - checked[name]
         if new:
             fail(phase, f"{what}: {name} launched at shapes the kernels phase does not check: "
@@ -4305,8 +4593,7 @@ def _remat_policies(torch):
         feats = trainer.encode_batch(host)
     draws = draw_train_randoms(torch.Generator(device=dev).manual_seed(5), feats["latents"],
                                trainer.diffusion, float(cfg.get("p_zero", 0.1)))
-    want = {"flash_attention": unet_train_attn_shapes(UNET_TRAIN_BATCH * UNET_TRAIN_VIEWS),
-            "geglu_ffn": {}}
+    want = unet_train_by_shape(UNET_TRAIN_BATCH * UNET_TRAIN_VIEWS)
     ref_loss = ref_grad = None
     out = {}
     for policy in REMAT_POLICIES:
@@ -4342,7 +4629,7 @@ def _remat_policies(torch):
             f"GiB above the resident state; CUDA events " + "; ".join(
                 f"{k} {v:.2f} ms" for k, v in ms.items())
             + f"; host wall {wall:.2f} ms; launches {counts}, attention by shape "
-            f"{shapes['flash_attention']}")
+            f"{shapes['flash_attention']}, its backward's {shapes['flash_attention_bwd']}")
         if loss.item() != ref_loss or not cos >= REMAT_MIN_COS:
             fail("variants", f"remat_policy {policy} changed the step's loss or gradient")
         out[f"remat {policy} step"] = (counts, shapes)

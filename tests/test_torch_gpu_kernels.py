@@ -12,7 +12,11 @@ ones, its input checks, its backward, its dispatch under the environment
 switch; the wgmma kernel at the served width against its twin at ragged
 contexts and at 1, 24 and 48 rows, with large logits, and the choice of
 kernel by shape), and the attention kernel inside a checkpointed block at
-the UNet finetune's shape. Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
+the UNet finetune's shape; the attention backward kernel against its twin
+and an fp32 computation at the trained shapes, tile edges and head_dim 128,
+bit-equal over two runs, the forward's log-sum-exp from both forward kernels
+against its twin, and a checkpointed transformer block's gradient with the
+kernels against the same block plain. Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
 
     python -m pytest tests/test_torch_gpu_kernels.py -m gpu --noconftest -q
@@ -24,7 +28,8 @@ import torch
 from videomv_tpu_torch import ops
 from videomv_tpu_torch.ops import flash_attention as fa
 from videomv_tpu_torch.ops.flash_attention import (
-    VARIANT_MMA, VARIANT_WGMMA, attention_reference, attention_variant, flash_attention)
+    VARIANT_MMA, VARIANT_WGMMA, attention_backward_reference, attention_lse_reference,
+    attention_reference, attention_variant, flash_attention)
 from videomv_tpu_torch.ops.fused_ffn import ffn_variant, geglu_ffn, geglu_ffn_reference
 
 pytestmark = pytest.mark.gpu
@@ -32,6 +37,9 @@ pytestmark = pytest.mark.gpu
 # a kernel's error against an fp32 computation may not exceed twice its
 # plain twin's (both bf16) plus this
 EPS = 2e-3
+# the forward kernels' log-sum-exp against its fp32 twin on the same bf16
+# inputs: the same fp32 sums in another order (|lse| ~ 7 at S = 1024)
+LSE_TOL = 1e-4
 
 
 @pytest.fixture()
@@ -545,10 +553,23 @@ def _rel_max(got, want):
                for g, w in zip(got, want))
 
 
+def _grads_within_bound(got, twin, ref32):
+    """Each gradient's error against fp32, relative to its largest entry,
+    within twice the twin's plus EPS."""
+    for name, g, t, r in zip(("dq", "dk", "dv"), got, twin, ref32):
+        k_err, t_err = _rel_max([g], [r]), _rel_max([t], [r])
+        assert k_err <= 2 * t_err + EPS, (name, k_err, t_err)
+
+
+def _fp32_grads(q, k, v, go):
+    f32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(attention_reference(*f32), f32, go.float())
+
+
 @pytest.mark.parametrize("shape", [(1, 1024, 16, 64), (2, 256, 4, 128)])
 def test_flash_attention_backward_is_the_twins(cuda, shape):
-    """Kernel forward; the backward recomputes through the plain twin, so it
-    equals autograd through the twin alone."""
+    """Kernel forward with its log-sum-exp, the backward kernel on the saved
+    tensors: within the bound of the backward twin fed the same o and lse."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (_randn(gen, cuda, *shape).requires_grad_() for _ in range(3))
     go = _randn(gen, cuda, *shape)
@@ -556,20 +577,63 @@ def test_flash_attention_backward_is_the_twins(cuda, shape):
     out = flash_attention(q, k, v)
     assert ops.launch_counts()["flash_attention"] == 1 and out.requires_grad
     got = torch.autograd.grad(out, (q, k, v), go)
-    assert ops.launch_counts()["flash_attention"] == 1  # the backward launches nothing
-    want = torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
-    assert _rel_max(got, want) <= 1e-3
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {shape: 1}
+    _, lse = fa._launch(q.detach(), k.detach(), v.detach(), with_lse=True)
+    twin = attention_backward_reference(q, k, v, out.detach(), lse, go)
+    _grads_within_bound(got, twin, _fp32_grads(q, k, v, go))
     with torch.no_grad():
-        flash_attention(q, k, v)  # no graph, same kernel
-    assert ops.launch_counts()["flash_attention"] == 2
+        flash_attention(q, k, v)  # no graph, same kernel, no backward
+    assert ops.launch_counts()["flash_attention"] == 3
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+
+
+# the trained shapes (the UNet finetune's 32² and 16² at 48 rows, the LGM's),
+# S = 64 x 3 and 64 x 5 (odd tile counts for both backward kernels), head_dim 128
+@pytest.mark.parametrize("shape", [(48, 1024, 5, 64), (48, 256, 10, 64), (1, 1024, 16, 64),
+                                   (2, 192, 3, 64), (1, 320, 2, 64), (2, 512, 4, 128),
+                                   (1, 192, 2, 128)])
+def test_flash_attention_backward_matches_fp32(cuda, shape):
+    """The backward kernel alone on the forward kernel's o and lse: within
+    twice its twin's error against autograd of the fp32 plain attention
+    (relative to each gradient's largest entry) plus EPS, and bit-equal over
+    two runs (no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v, go = (_randn(gen, cuda, *shape) for _ in range(4))
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    ops.reset_launch_counts()
+    got = fa._launch_bwd(q, k, v, o, lse, go)
+    torch.cuda.synchronize()
+    assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {shape: 1}
+    assert all(torch.equal(a, b) for a, b in zip(fa._launch_bwd(q, k, v, o, lse, go), got))
+    twin = attention_backward_reference(q, k, v, o, lse, go)
+    _grads_within_bound(got, twin, _fp32_grads(q, k, v, go))
+    assert _rel_max(got, twin) <= 5e-2
+
+
+@pytest.mark.parametrize("shape,variant", [
+    ((48, 1024, 5, 64), VARIANT_WGMMA), ((48, 256, 10, 64), VARIANT_WGMMA),
+    ((2, 512, 3, 64), VARIANT_WGMMA), ((48, 1024, 5, 64), VARIANT_MMA),
+    ((1, 256, 16, 64), VARIANT_MMA), ((2, 192, 3, 64), VARIANT_MMA),
+    ((2, 512, 4, 128), VARIANT_MMA)])
+def test_flash_attention_lse_matches_its_twin(cuda, shape, variant):
+    """Both forward kernels' log-sum-exp, row by row (a wrong row mapping
+    passes an output-only check), and the output unchanged by writing it."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + variant)
+    q, k, v = (_randn(gen, cuda, *shape) for _ in range(3))
+    o, lse = fa._launch(q, k, v, variant=variant, with_lse=True)
+    assert torch.equal(o, fa._launch(q, k, v, variant=variant))
+    _, want = attention_lse_reference(q, k, v)
+    assert lse.shape == (shape[0], shape[2], shape[1])
+    assert (lse - want).abs().max().item() <= LSE_TOL
 
 
 def test_flash_attention_under_checkpoint(cuda):
     """Kernel 1 inside a block recomputed by ``torch.utils.checkpoint``, as the
     UNet finetune runs it at its 32² shape: the forward launches once, the
-    backward's recomputation once more (the counter sees both), and the
-    gradient, which goes through the plain twin, stays within the kernel
-    bound of an fp32 computation."""
+    backward's recomputation once more (the counter sees both) and the
+    backward kernel once on the recomputation's o and lse; the gradient stays
+    within the kernel bound of an fp32 computation."""
     from torch.utils.checkpoint import checkpoint
 
     shape = (48, 1024, 5, 64)
@@ -581,13 +645,11 @@ def test_flash_attention_under_checkpoint(cuda):
     assert ops.launch_counts_by_shape()["flash_attention"] == {shape: 1}
     got = torch.autograd.grad(out, (q, k, v), go)
     assert ops.launch_counts_by_shape()["flash_attention"] == {shape: 2}
-    twin = torch.autograd.grad(attention_reference(q, k, v), (q, k, v), go)
-    f32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
-    ref = torch.autograd.grad(attention_reference(*f32), f32, go.float())
-    assert _rel_max(got, twin) <= 1e-3
-    for g, t, r in zip(got, twin, ref):
-        ok, errs = _within_bound(g, t, r)
-        assert ok, errs
+    assert ops.launch_counts_by_shape()["flash_attention_bwd"] == {shape: 1}
+    o, lse = fa._launch(q.detach(), k.detach(), v.detach(), with_lse=True)
+    twin = attention_backward_reference(q, k, v, o, lse, go)
+    assert all(torch.equal(a, b) for a, b in zip(fa._launch_bwd(q, k, v, o, lse, go), got))
+    _grads_within_bound(got, twin, _fp32_grads(q, k, v, go))
     with torch.no_grad():
         ok, errs = _within_bound(out, attention_reference(q, k, v),
                                  attention_reference(*(t.float() for t in (q, k, v))))
@@ -622,19 +684,59 @@ def test_module_dispatch_reaches_the_kernels(cuda):
         block(x, ctx)
     # attn1 (self, 1024 tokens) and the FFN (8192 tokens) take the kernels;
     # attn2 (77 context tokens) stays plain
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 1, "splat_composite": 0,
-                                   "splat_composite_bwd": 0, "fused_spatial": 0}
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    assert ops.launch_counts() == dict(zero, flash_attention=1, geglu_ffn=1)
     ops.reset_launch_counts()
     with torch.no_grad():
         block.train()(x, ctx)  # training mode: the FFN gate is closed
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0,
-                                   "splat_composite_bwd": 0, "fused_spatial": 0}
+    assert ops.launch_counts() == dict(zero, flash_attention=1)
     # under grad the attention goes through its autograd.Function
     ops.reset_launch_counts()
     block(x.clone().requires_grad_(), ctx).float().sum().backward()
-    assert ops.launch_counts() == {"flash_attention": 1, "geglu_ffn": 0, "splat_composite": 0,
-                                   "splat_composite_bwd": 0, "fused_spatial": 0}
+    assert ops.launch_counts() == dict(zero, flash_attention=1, flash_attention_bwd=1)
     assert all(p.grad is not None for p in block.parameters())
+
+
+def test_checkpointed_block_gradient_kernels_vs_plain(cuda, monkeypatch):
+    """A BasicTransformerBlock at the UNet's 32² width (fp32 weights, bf16
+    autocast, recomputed under torch.utils.checkpoint, as the finetune runs
+    it): the gradients of its input and parameters with kernel 1 forward and
+    backward against the same block on the plain path, each relative to its
+    largest entry, both against the block in fp32 (plain): the kernels' error
+    within twice the plain path's plus EPS."""
+    from torch.utils.checkpoint import checkpoint
+
+    from videomv_tpu_torch.models.blocks import BasicTransformerBlock
+    from videomv_tpu_torch.ops import attention as attn_mod
+    from videomv_tpu_torch.training.checkpoints import init_weights
+
+    block = init_weights(BasicTransformerBlock(320, 5, 64, context_dim=1024), seed=8,
+                         zero_init=False).to(cuda).train()
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn(gen, cuda, 8, 1024, 320, dtype=torch.float32)
+    ctx = _randn(gen, cuda, 8, 77, 1024, dtype=torch.float32)
+    go = _randn(gen, cuda, 8, 1024, 320, dtype=torch.float32)
+
+    def grads(autocast):
+        xi = x.clone().requires_grad_()
+        block.zero_grad()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            out = checkpoint(block, xi, ctx, use_reentrant=False)
+        out.float().backward(go)
+        return [xi.grad] + [p.grad.clone() for p in block.parameters()]
+
+    ops.reset_launch_counts()
+    kern = grads(True)
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.launch_counts(), 0),
+                                       flash_attention=2, flash_attention_bwd=1)
+    monkeypatch.setattr(attn_mod, "attention_eligible", lambda *a: False)
+    ops.reset_launch_counts()
+    plain = grads(True)
+    ref = grads(False)
+    assert not any(ops.launch_counts().values())
+    for i, (g, p, r) in enumerate(zip(kern, plain, ref)):
+        k_err, p_err = _rel_max([g], [r]), _rel_max([p], [r])
+        assert k_err <= 2 * p_err + EPS, (i, k_err, p_err)
 
 
 def _spatial_block(dev, c, heads, cc, seed=9):

@@ -108,8 +108,8 @@ def test_every_cuda_source_is_built_and_bound():
 
     srcs = sorted(glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")))
     assert [os.path.basename(s) for s in srcs] == [
-        "flash_attention.cu", "fused_ffn.cu", "fused_spatial.cu", "splat_composite.cu",
-        "splat_composite_bwd.cu"]
+        "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu", "fused_spatial.cu",
+        "splat_composite.cu", "splat_composite_bwd.cu"]
     entry = {}
     for path in srcs:
         text = open(path).read()
@@ -127,10 +127,11 @@ def test_every_cuda_source_is_built_and_bound():
         for u in users:
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
     # the wgmma kernels of attention, the FFN and the fused block share their
-    # Hopper helpers; the splat kernels use none
+    # Hopper helpers; the splat kernels and the attention backward (mma.sync)
+    # use none
     for hdr in ("hopper_utils.cuh", "wgmma_ops.cuh"):
         for u in ("flash_attention.cu", "fused_ffn.cu", "fused_spatial.cu"):
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
-        for u in ("splat_composite.cu", "splat_composite_bwd.cu"):
+        for u in ("flash_attention_bwd.cu", "splat_composite.cu", "splat_composite_bwd.cu"):
             assert f'#include "{hdr}"' not in open(os.path.join(_build.CSRC_DIR, u)).read()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

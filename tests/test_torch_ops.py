@@ -53,22 +53,25 @@ def test_attention_wrapper_on_cpu_runs_the_twin():
                                   attention_reference(q, k, v).numpy())
     np.testing.assert_array_equal(dot_product_attention(q, k, v).numpy(),
                                   attention_reference(q, k, v).numpy())
-    assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "geglu_ffn": 0, "splat_composite": 0,
                                    "splat_composite_bwd": 0, "fused_spatial": 0}
-    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {},
-                                            "fused_spatial": {}}
+    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "flash_attention_bwd": {},
+                                            "geglu_ffn": {}, "fused_spatial": {}}
 
 
 def test_launch_counts_by_shape_reset_with_the_totals():
     ops.flash_attention.LAUNCHES_BY_SHAPE[(1, 256, 2, 64)] = 3
+    ops.flash_attention.BWD_LAUNCHES_BY_SHAPE[(1, 256, 2, 64)] = 1
     ops.fused_ffn.LAUNCHES_BY_SHAPE[(4096, 320, 1280)] = 2
     ops.fused_spatial.LAUNCHES_BY_SHAPE[(48, 1024, 320, 145)] = 5
     assert ops.launch_counts_by_shape() == {"flash_attention": {(1, 256, 2, 64): 3},
+                                            "flash_attention_bwd": {(1, 256, 2, 64): 1},
                                             "geglu_ffn": {(4096, 320, 1280): 2},
                                             "fused_spatial": {(48, 1024, 320, 145): 5}}
     ops.reset_launch_counts()
-    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "geglu_ffn": {},
-                                            "fused_spatial": {}}
+    assert ops.launch_counts_by_shape() == {"flash_attention": {}, "flash_attention_bwd": {},
+                                            "geglu_ffn": {}, "fused_spatial": {}}
 
 
 def test_attention_mask_and_bias_match_jax():
@@ -99,13 +102,15 @@ def test_ffn_twin_matches_jax_kernel(interpret_kernels, t, c, inner):
 
 
 def test_attention_function_backward_matches_jax_grad(monkeypatch):
-    """The autograd.Function the CUDA path uses (kernel forward, backward by
-    autograd through the plain twin on the saved inputs), with the twin
-    standing in for the kernel launch, against ``jax.grad`` of the JAX
-    package's reference: the counterpart of its ``custom_vjp``."""
+    """The autograd.Function the CUDA path uses (the forward kernel with its
+    log-sum-exp, the backward kernel on the saved q, k, v, o, lse), with the
+    two kernels' twins standing in for the launches, against ``jax.grad`` of
+    the JAX package's reference: the counterpart of its ``custom_vjp``."""
     import videomv_tpu_torch.ops.flash_attention as tfa
 
-    monkeypatch.setattr(tfa, "_launch", attention_reference)
+    monkeypatch.setattr(tfa, "_launch", lambda q, k, v, with_lse: tfa.attention_lse_reference(
+        q, k, v))
+    monkeypatch.setattr(tfa, "_launch_bwd", tfa.attention_backward_reference)
     rs = np.random.default_rng(11)
     q, k, v = _qkv(rs, 2, 64, 64, 2, 32)
     go = rs.standard_normal(q.shape).astype(np.float32)
@@ -118,8 +123,8 @@ def test_attention_function_backward_matches_jax_grad(monkeypatch):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
     # on a CPU tensor the public wrapper differentiates the twin directly
     got_cpu = torch.autograd.grad(flash_attention(tq, tk, tv), (tq, tk, tv), torch.from_numpy(go))
-    for g, w in zip(got_cpu, got):
-        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    for g, w in zip(got_cpu, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
 
 
 def test_ffn_function_backward_matches_jax_grad(monkeypatch):

@@ -172,7 +172,8 @@ def test_composite_function_backward_runs_the_twin_on_cpu(binned):
     (got,) = torch.autograd.grad(out, p, grad)
     want = splat.composite_backward_reference(tp, tts, ttc, saved, grad, NTS)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert ops.launch_counts() == {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0,
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "geglu_ffn": 0, "splat_composite": 0,
                                    "splat_composite_bwd": 0, "fused_spatial": 0}
 
 

@@ -55,6 +55,10 @@
 //   * shared-memory rows are padded by 16 bytes so ldmatrix is conflict-free.
 // The variant is chosen by the caller from the shape and checked here; neither
 // kernel is a fallback of the other.
+// Under grad both kernels also write each query row's log-sum-exp (fp32,
+// [B, H, S]) from their running max and sum, which the backward kernels
+// (flash_attention_bwd.cu) recompute the probabilities from; with a null
+// pointer (inference) nothing is written.
 // Requirements (checked by the Python wrapper): bf16, contiguous [B,S,H,D],
 // 16-byte aligned, q/k/v of one shape (self-attention), S % 64 == 0, D in
 // {64, 128}.
@@ -66,6 +70,13 @@
 
 namespace vmv {
 namespace {
+
+// The log-sum-exp of a row's scaled logits, natural log, from the online
+// softmax's running max m (of the unscaled logits) and sum l of
+// exp2((s - m) * scale_log2): ln(sum exp(s * scale)) = (m * scale_log2 + log2 l) ln 2.
+__device__ __forceinline__ float row_lse(float m, float l, float scale_log2) {
+  return (m * scale_log2 + log2f(l)) * 0.6931471805599453f;
+}
 
 // ------------------------------------------------ the wgmma kernel (sm_90a)
 constexpr int kWgQRows = 128;   // query rows per block: 64 per consumer warpgroup
@@ -80,8 +91,8 @@ constexpr int kWgSmemBytes = 1024 + kWgTileBytes * (1 + 2 * kWgStages) + 1024;
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
-                        const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, int S,
-                        int H, float scale_log2) {
+                        const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                        float* __restrict__ lse, int S, int H, float scale_log2) {
   constexpr int D = 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);   // [128 x 64]; later the output tile
@@ -261,11 +272,17 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           *reinterpret_cast<const uint4*>(my_q + r * kSwizzleRowBytes + ((chunk ^ (r & 7)) << 4));
       *reinterpret_cast<uint4*>(og + int64_t(r) * tok_stride + chunk * 8) = val;
     }
+    if (lse != nullptr && (lane & 3) == 0) {
+      float* lse_row = lse + int64_t(bh) * S + q0 + wg * 64 + row;
+      lse_row[0] = row_lse(m_run[0], l_run[0], scale_log2);
+      lse_row[8] = row_lse(m_run[1], l_run[1], scale_log2);
+    }
   }
 }
 
-cudaError_t launch_flash_attn_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                                    int S, int H, float scale, cudaStream_t stream) {
+cudaError_t launch_flash_attn_wgmma(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, int B, int S, int H, float scale,
+                                    cudaStream_t stream) {
   constexpr int D = 64;
   // [B, S, H, D] read in place, innermost first: D, H, S, B; a box is one
   // head's 128 tokens x 64 channels
@@ -284,7 +301,7 @@ cudaError_t launch_flash_attn_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kWgQRows, B * H);
   flash_attn_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(o), S, H, scale * 1.4426950408889634f);
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, S, H, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -303,8 +320,8 @@ struct AttnSmem {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H,
-                      float scale_log2) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int S, int H, float scale_log2) {
   constexpr int LD = AttnSmem<D>::kLd;
   constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -385,11 +402,15 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     *reinterpret_cast<uint32_t*>(og + int64_t(row + 8) * tok_stride + col) =
         pack_bf16x2(o_acc[i][2] / l_run[1], o_acc[i][3] / l_run[1]);
   }
+  if (lse != nullptr && (lane & 3) == 0) {
+    lse[int64_t(bh) * S + row] = row_lse(m_run[0], l_run[0], scale_log2);
+    lse[int64_t(bh) * S + row + 8] = row_lse(m_run[1], l_run[1], scale_log2);
+  }
 }
 
 template <int D>
-cudaError_t launch_flash_attn(const void* q, const void* k, const void* v, void* o, int B,
-                              int S, int H, float scale, cudaStream_t stream) {
+cudaError_t launch_flash_attn(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int B, int S, int H, float scale, cudaStream_t stream) {
   const size_t smem = AttnSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -398,29 +419,32 @@ cudaError_t launch_flash_attn(const void* q, const void* k, const void* v, void*
   const dim3 grid(S / kBlockM, B * H);
   flash_attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, H, scale * 1.4426950408889634f);
+      static_cast<bf16*>(o), lse, S, H, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace vmv
 
-// q, k, v, o: bf16 [B, S, H, D], contiguous. `variant` names the kernel
+// q, k, v, o: bf16 [B, S, H, D], contiguous; lse: fp32 [B, H, S] or null
+// (the backward's input: each query row's log-sum-exp of its scaled logits,
+// natural log; inference passes null and pays nothing). `variant` names the kernel
 // (ops/flash_attention.py::attention_variant chooses it from the shape):
 // 1 = wgmma (D == 64, S % 128 == 0), 0 = mma.sync (D in {64, 128}, S % 64 == 0).
 // Returns a cudaError_t value; a variant that does not take the shape is
 // cudaErrorInvalidValue.
 extern "C" int vmv_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                  int B, int S, int H, int D, float scale, int variant,
-                                  void* stream) {
+                                  void* lse, int B, int S, int H, int D, float scale,
+                                  int variant, void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || S <= 0 || S % vmv::kBlockM != 0) return int(cudaErrorInvalidValue);
   if (variant == 1) {
     if (D != 64 || S % vmv::kWgKeys != 0) return int(cudaErrorInvalidValue);
-    return int(vmv::launch_flash_attn_wgmma(q, k, v, o, B, S, H, scale, st));
+    return int(vmv::launch_flash_attn_wgmma(q, k, v, o, lse_f, B, S, H, scale, st));
   }
   if (variant != 0) return int(cudaErrorInvalidValue);
-  if (D == 64) return int(vmv::launch_flash_attn<64>(q, k, v, o, B, S, H, scale, st));
-  if (D == 128) return int(vmv::launch_flash_attn<128>(q, k, v, o, B, S, H, scale, st));
+  if (D == 64) return int(vmv::launch_flash_attn<64>(q, k, v, o, lse_f, B, S, H, scale, st));
+  if (D == 128) return int(vmv::launch_flash_attn<128>(q, k, v, o, lse_f, B, S, H, scale, st));
   return int(cudaErrorInvalidValue);
 }

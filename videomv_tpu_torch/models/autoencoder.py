@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import fp32_logits
+
 __all__ = ["AutoencoderKL", "Decoder", "Encoder"]
 
 
@@ -57,7 +59,7 @@ class AttnBlock(nn.Module):
         b, c, hh, ww = x.shape
         h = self.norm(x)
         q, k, v = (m(h).reshape(b, c, hh * ww).transpose(1, 2) for m in (self.q, self.k, self.v))
-        logits = torch.einsum("bqc,bkc->bqk", q, k).float() * c ** -0.5
+        logits = fp32_logits("bqc,bkc->bqk", q, k) * c ** -0.5
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
         h = torch.einsum("bqk,bkc->bqc", attn, v).transpose(1, 2).reshape(b, c, hh, ww)
         return x + self.proj_out(h)

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.flash_attention import fp32_logits
 from ..ops.fused_ffn import ffn_eligible, geglu_ffn
 from ..ops.fused_spatial import (
     fused_spatial_transformer,
@@ -377,7 +378,7 @@ class TemporalAttentionBlock(nn.Module):
         rot = min(self.rotary_dim, dh)
         q = rotary_rotate(q * dh ** -0.5, rot)
         k = rotary_rotate(k, rot)
-        sim = q.float() @ k.float().transpose(-1, -2)  # [B·S, heads, F, F]
+        sim = fp32_logits("bhid,bhjd->bhij", q, k)  # [B·S, heads, F, F]
         if pos_bias is not None:
             sim = sim + pos_bias.float()[None]
         mask = None

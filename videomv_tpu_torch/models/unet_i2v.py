@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import fp32_logits
 from ..parallel.infer import current_frame_shard
 from .blocks import TimestepMLP, sinusoidal_embedding
 from .unet_t2v import UNetSD_T2VBase
@@ -54,7 +55,7 @@ class _PackedAttention(nn.Module):
         b, s, _ = x.shape
         q, k, v = (t.reshape(b, s, self.heads, self.dim_head)
                    for t in self.to_qkv(x).chunk(3, dim=-1))
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * self.dim_head ** -0.5
+        logits = fp32_logits("bqhd,bkhd->bhqk", q, k) * self.dim_head ** -0.5
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, self.heads * self.dim_head)
         return self.to_out(o)

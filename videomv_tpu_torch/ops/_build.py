@@ -37,8 +37,10 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; every pointer and the stream are
 # void*, so ctypes never truncates them to 32-bit ints
 _SIGNATURES = {
-    # q, k, v, o, then B, S, H, D, the scale, variant
-    "vmv_flash_attn_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_float, _c_int, _c_void_p],
+    # q, k, v, o, lse (or null), then B, S, H, D, the scale, variant
+    "vmv_flash_attn_fwd": [_c_void_p] * 5 + [_c_int] * 4 + [_c_float, _c_int, _c_void_p],
+    # q, k, v, o, lse, dout, delta (scratch), dq, dk, dv, then B, S, H, D, the scale
+    "vmv_flash_attn_bwd": [_c_void_p] * 10 + [_c_int] * 4 + [_c_float, _c_void_p],
     # x, w1, b1, w2, b2, out, then T, C, I, variant
     "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
     # payload, tile_start, tile_count, order (or null), scratch, out, then R,
