@@ -47,7 +47,17 @@ Phases (each prints its lines; a failed phase exits non-zero):
      step and the LGM's plain head_dim-32 attention, and the device
      kernels of two CFG forwards under torch.profiler by class and name
      (trace written to workspace/profile/);
-  8. i2v: configs/i2vgen_xl_infer.yaml as shipped (refine on, shared uncond,
+  8. tracing: the program's own spans (utils.profiling) over the shipped
+     T2V config's plain and refined requests: the host cost of one span off
+     and on; TRACE_TURNS requests with tracing off and on in turns (the
+     seconds of each, the on-cost), each traced request's spans (every
+     span's device ms > 0, the refine's five stages within TRACE_TOL of the
+     refine, the top-level spans at least TRACE_COVER of the request's device
+     time, the launch counters of the record, the sampler.forward spans
+     within TRACE_TOL of CUDA events from the UNet's forward hooks), then one
+     request under torch.profiler (host and device) and its idle device time
+     by span;
+  9. i2v: configs/i2vgen_xl_infer.yaml as shipped (refine on, shared uncond,
      guidance 6.0) at full width — one UNetSD_I2VGen CFG forward at 8 views
      with the fused spatial block switched on, bf16 on the card vs fp32 on
      the host, and against the switch off; requests from
@@ -57,7 +67,7 @@ Phases (each prints its lines; a failed phase exits non-zero):
      main() once with the switch on. The script sets and restores
      VIDEOMV_ENABLE_FUSED_SPATIAL around each part; the other phases run
      with it unset;
-  9. train: configs/t2v_train.yaml with UNet.use_lgm_refine True at full
+ 10. train: configs/t2v_train.yaml with UNet.use_lgm_refine True at full
      width (frozen UNet, VAE and text tower, LGM big trained, 8 supervision
      views at 512², LPIPS, AdamW) — T2VTrainer takes 3 steps at batch 1 on
      the synthetic dataset with asserted launch counts, finite losses, the
@@ -65,7 +75,7 @@ Phases (each prints its lines; a failed phase exits non-zero):
      parts under CUDA events; the gradient through kernels 3 + 4 against
      their twins, and one step's LGM gradient bf16 with the kernels against
      fp32 plain; a save / restore round trip; the training CLI once;
- 10. unet_train: configs/t2v_train.yaml as shipped (the plain UNet finetune:
+ 11. unet_train: configs/t2v_train.yaml as shipped (the plain UNet finetune:
      UNetSD_T2VBase of 1.41 B parameters trained in fp32 under bf16 autocast
      with block checkpointing, frozen VAE and text tower, AdamW with the SD
      keys' gradients at 0.5) with seeded weights — T2VTrainer takes 3 steps
@@ -82,7 +92,7 @@ Phases (each prints its lines; a failed phase exits non-zero):
      written into workspace/, 4 steps with an image step (f = 1) every 2nd
      at the shipped batches (image 196, video 24 = 576 rows) with each
      step's seconds, then one video step by parts and its peak;
- 11. i2v_train: configs/i2vgen_xl_train.yaml as shipped (UNetSD_I2VGen of
+ 12. i2v_train: configs/i2vgen_xl_train.yaml as shipped (UNetSD_I2VGen of
      1.42 B parameters trained in fp32 under bf16 autocast, the joint text +
      visual tower and the VAE frozen, cosine / zero terminal SNR /
      v-prediction with offset noise 0.1, EMA on) with seeded weights —
@@ -95,25 +105,25 @@ Phases (each prints its lines; a failed phase exits non-zero):
      the LGM-refine finetune behind the frozen I2V UNet (UNet.use_lgm_refine
      True, batch 1): 3 steps with asserted launch counts by shape (kernels 1,
      3 and 4) and the LGM gradient bf16 with the kernels vs fp32 plain;
- 12. dist_train: configs/t2v_train.yaml's UNet finetune at full width, batch
+ 13. dist_train: configs/t2v_train.yaml's UNet finetune at full width, batch
      2, one step on a fixed batch and fixed draws: plain (no process group),
      then under torch.distributed at world size 1 on NCCL, replicated (the
      data-parallel step; loss bit-equal) and FSDP-sharded, each held to the
      plain step's loss and gradient with kernel 1's twenty launches by shape
      and its peak memory, then one AdamW step of the sharded state and one
      Adafactor step of it, held to the plain Adafactor on the same gradient;
- 13. batched_serving: generate_batch(force_batched=True) of two prompts at
+ 14. batched_serving: generate_batch(force_batched=True) of two prompts at
      the shipped T2V geometry, plain and refined, each row against a
      single-prompt request fed its noise row (first CFG forward, final
      latents), kernels 1, 2 and 3 by shape, the batch's wall against the two
      requests' (not a claim);
- 14. multirank: two ranks on the one card. NCCL refuses two ranks on one
+ 15. multirank: two ranks on the one card. NCCL refuses two ranks on one
      device (its message is printed); over gloo with CUDA tensors a
      frame-parallel plain T2V request (sp = 2, MULTIRANK_STEPS DDIM steps)
      against one rank, and one data-parallel finetune step at global batch 2
      against dist_train's loss; the ranks take their weights from files the
      phase writes (it needs dist_train in the same run);
- 15. variants: slice F at full width. The T2V finetune step of
+ 16. variants: slice F at full width. The T2V finetune step of
      configs/t2v_train.yaml at batch 2 under remat_policy full, dots_no_batch
      and dots (the step by parts, its peak memory, the loss bit-equal to
      full's, the gradient's cosine to full's); over the served T2V UNet at 24
@@ -488,8 +498,15 @@ REMAT_POLICIES = ("full", "dots_no_batch", "dots")
 REMAT_MIN_COS = 0.99999
 ADAFACTOR_PARAM_TOL = 1e-6
 VARIANT_CALLS = {}
-PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "i2v", "train",
-          "unet_train", "i2v_train", "dist_train", "batched_serving", "multirank", "variants")
+PHASES = ("env", "build", "kernels", "unet", "refine", "slice", "profile", "tracing", "i2v",
+          "train", "unet_train", "i2v_train", "dist_train", "batched_serving", "multirank",
+          "variants")
+# the tracing phase: requests a cell with tracing off and on, in turns; the
+# share of the request's device time its top-level spans must cover; how far
+# the refine's five stages may sum from the refine, and the sampler.forward
+# spans from the UNet's forward hooks
+TRACE_TURNS, TRACE_COVER, TRACE_TOL = 3, 0.95, 0.05
+TRACE_COST_SPANS = 2000  # spans timed for the host cost of one
 # Not part of a plain run: `--phases env,ffn_ablation` times the FFN's wgmma
 # kernel at the served 48-row shapes with parts of it compiled out (the
 # VMV_NO* switches of csrc/fused_ffn.cu; the results are wrong, the times say
@@ -1628,6 +1645,8 @@ def main(argv=None):
         by_path["plain request"], by_path["refined request"] = phase_slice(torch)
     if "profile" in phases:
         phase_profile(torch)
+    if "tracing" in phases:
+        phase_tracing(torch)
     if "i2v" in phases:
         by_path["I2V plain request"], by_path["I2V refined request"] = phase_i2v(torch)
     if "train" in phases:
@@ -2434,6 +2453,154 @@ def phase_profile(torch):
         del q, k, v
 
     _profile_forward(torch, forward, "CFG forward", "profile_cfg_forward.json")
+
+
+def _check_trace(rec, refine, tag):
+    """One traced request's record against the tracing phase's checks."""
+    from videomv_tpu_torch.utils import profiling
+
+    spans = rec["spans"]
+    zero = sorted({s["name"] for s in spans if not s["dev_ms"] > 0})
+    if zero:
+        fail("tracing", f"{tag}: spans with no device time: {zero}")
+    root = spans[0]
+    top = sum(s["dev_ms"] for s in spans if s["parent"] == 0)
+    if root["name"] != "pipeline.request" or top < TRACE_COVER * root["dev_ms"]:
+        fail("tracing", f"{tag}: top-level spans cover {top:.3f} of {root['name']}'s "
+             f"{root['dev_ms']:.3f} device ms (at least {TRACE_COVER:.0%} expected)")
+    for i, s in enumerate(spans):
+        if s["name"] == "refine":
+            kids = [c for c in spans if c["parent"] == i]
+            total = sum(c["dev_ms"] for c in kids)
+            if len(kids) != 5 or abs(total - s["dev_ms"]) > TRACE_TOL * s["dev_ms"]:
+                fail("tracing", f"{tag}: the refine's stages {[c['name'] for c in kids]} sum "
+                     f"to {total:.3f} device ms of its {s['dev_ms']:.3f} (within "
+                     f"{TRACE_TOL:.0%} expected)")
+    by = profiling.summarize(rec)
+    c = rec["counts"]
+    want = REFINED_LAUNCHES if refine else PLAIN_LAUNCHES
+    got = {k: c.get(f"launch.{k}", 0) for k in want}
+    steps, refines = 50, 3 if refine else 0
+    if (got != want or c.get("sampler.steps") != steps or c.get("refine.calls", 0) != refines
+            or by["sampler.forward"]["n"] != steps - refines
+            or c.get("sampler.forwards") != steps - refines):
+        fail("tracing", f"{tag}: the record counts {c}, sampler.forward x"
+             f"{by['sampler.forward']['n']}; expected launches {want}, {steps} steps, "
+             f"{refines} refines")
+    if refine and not 0 < c["splat.pairs_kept"] <= c["splat.pairs_demanded"]:
+        fail("tracing", f"{tag}: pairs kept {c['splat.pairs_kept']} of "
+             f"{c['splat.pairs_demanded']} demanded")
+    return top / root["dev_ms"]
+
+
+def phase_tracing(torch):
+    """The program's spans and counters on the card (``utils.profiling``):
+    for a plain and a refined request of the shipped T2V config, one warm-up
+    request, then TRACE_TURNS requests with tracing off and on in turns (host
+    seconds fenced by synchronize; the on-cost), the traced requests' records
+    checked (``_check_trace``), then one request under torch.profiler (host
+    and device activity) and its idle device time by span."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity
+
+    from videomv_tpu_torch.utils import profiling
+
+    t_phase = time.time()
+    pipe = _pipeline(torch)
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]):
+        cuda_only = profiling.active()
+    say("tracing", f"spans record under a profiler of the device's activity alone: {cuda_only}")
+    # the host cost of one span, off and on (inside a request on the card)
+    cost = {}
+    for on in (False, True):
+        profiling.enable(on)
+        with profiling.request("tracing.cost", pipe.device):
+            t0 = time.perf_counter()
+            for _ in range(TRACE_COST_SPANS):
+                with profiling.span("tracing.cost.span"):
+                    pass
+            cost[on] = (time.perf_counter() - t0) / TRACE_COST_SPANS * 1e6
+    profiling.enable(False)
+    profiling.clear()
+    say("tracing", f"host cost of one span: {cost[False]:.3f} us off, {cost[True]:.3f} us on "
+        f"({TRACE_COST_SPANS} spans in a request)")
+    # CUDA events from forward hooks on the UNet, as the benchmark's
+    # sampler.unet_fwd_ms.serve takes them (CFG calls: a batch of 2),
+    # beside the sampler.forward spans
+    hooked, pending = [], []
+
+    def pre(module, args):
+        if profiling.active():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            pending.append((args[0].shape[0], ev))
+
+    def post(module, args, out):
+        if pending:
+            rows, ev = pending.pop()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            hooked.append((rows, ev, end))
+    hooks = [pipe.unet.register_forward_pre_hook(pre), pipe.unet.register_forward_hook(post)]
+    for refine in (False, True):
+        tag = "refined request" if refine else "plain request"
+
+        def request():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.generate("a wooden chair", steps=50, guide_scale=9.0, use_gs_refine=refine,
+                          seed=11)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        request()  # warm-up
+        profiling.clear()
+        secs = {False: [], True: []}
+        for _ in range(TRACE_TURNS):
+            for on in (False, True):
+                profiling.enable(on)
+                secs[on].append(request())
+        profiling.enable(False)
+        recs = profiling.requests()
+        if len(recs) != TRACE_TURNS:
+            fail("tracing", f"{tag}: {len(recs)} records of {TRACE_TURNS} traced requests")
+        cover = [_check_trace(rec, refine, tag) for rec in recs]
+        off, on = statistics.median(secs[False]), statistics.median(secs[True])
+        span_ms = statistics.mean(s["dev_ms"] for rec in recs for s in rec["spans"]
+                                  if s["name"] == "sampler.forward")
+        hook_ms = statistics.mean(a.elapsed_time(b) for rows, a, b in hooked if rows > 1)
+        hooked.clear()
+        say("tracing", f"{tag}: CFG forward, sampler.forward spans {span_ms:.3f} ms against "
+            f"the UNet's forward hooks {hook_ms:.3f} ms in the same requests "
+            f"({100 * (span_ms / hook_ms - 1):+.2f} %)")
+        if abs(span_ms / hook_ms - 1) > TRACE_TOL:
+            fail("tracing", f"{tag}: sampler.forward {span_ms:.3f} ms, the hooks' "
+                 f"{hook_ms:.3f} ms (within {TRACE_TOL:.0%} expected)")
+        by = profiling.summarize(recs[-1])
+        say("tracing", f"{tag}: seconds off {[round(x, 4) for x in secs[False]]}, on "
+            f"{[round(x, 4) for x in secs[True]]}; medians {off:.4f} / {on:.4f} s, on-cost "
+            f"{on - off:+.4f} s ({100 * (on / off - 1):+.2f} %); top-level spans cover "
+            f"{[round(100 * x, 2) for x in cover]} % of the request's device time")
+        say("tracing", f"{tag}, last traced request, device ms by span (n, total, mean): "
+            + "; ".join(f"{k} {v['n']} {v['dev_ms']:.2f} {v['dev_ms'] / v['n']:.2f}"
+                        for k, v in by.items())
+            + f"; counters {recs[-1]['counts']}")
+        profiling.clear()
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_s = request()
+        t0 = time.time()
+        idle = profiling.idle_by_span(prof)
+        say("tracing", f"{tag} under torch.profiler (host and device), {profiled_s:.3f} s: "
+            f"idle {sum(idle.values()):.4f} s of the device, by span (s): "
+            f"{ {k: round(v, 4) for k, v in idle.items()} } (read in {time.time() - t0:.1f} s)")
+        _check_trace(profiling.requests()[0], refine, tag + " (profiled)")
+        hooked.clear()
+        profiling.clear()
+    for h in hooks:
+        h.remove()
+    say("tracing", f"phase {time.time() - t_phase:.1f}s")
 
 
 def _profile_forward(torch, forward, what, trace_name, n_fwd=2):

@@ -1,0 +1,10 @@
+"""Milliseconds of the refine's VAE encode of its renders (every view) on the
+device: the mean of the program's own ``refine.encode`` spans over the refines
+of the first request it recorded, the first profiled pass
+(``mvbench/program_spans.py``)."""
+
+from mvbench.program_spans import dev_ms, mean, named
+
+
+def read(r):
+    return mean(dev_ms(named("refine.encode")))

@@ -40,6 +40,8 @@ NOT_PORTED = {
     ("utils/cache_debug.py", "*"): _TUNNEL,
     ("utils/profiling.py", "time_chained"): "ROADMAP: not to port (the port times with CUDA "
                                             "events)",
+    ("utils/profiling.py", "time_fn"): "read by nothing in the port (removed): its spans time "
+                                       "a request's parts on the device with CUDA events",
     ("models/__init__.py", "convert_lpips"): _CONVERTERS,
     ("models/lpips.py", "convert_lpips"): _CONVERTERS,
     ("training/__init__.py", "convert_open_clip"): _CONVERTERS,

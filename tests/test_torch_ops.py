@@ -61,17 +61,24 @@ def test_attention_wrapper_on_cpu_runs_the_twin():
 
 
 def test_launch_counts_by_shape_reset_with_the_totals():
-    ops.flash_attention.LAUNCHES_BY_SHAPE[(1, 256, 2, 64)] = 3
-    ops.flash_attention.BWD_LAUNCHES_BY_SHAPE[(1, 256, 2, 64)] = 1
-    ops.fused_ffn.LAUNCHES_BY_SHAPE[(4096, 320, 1280)] = 2
-    ops.fused_spatial.LAUNCHES_BY_SHAPE[(48, 1024, 320, 145)] = 5
+    from videomv_tpu_torch.utils import profiling
+
+    ops.reset_launch_counts()
+    profiling.count("launch.flash_attention", 3, shape=(1, 256, 2, 64))
+    profiling.count("launch.flash_attention_bwd", 1, shape=(1, 256, 2, 64))
+    profiling.count("launch.geglu_ffn", 2, shape=(4096, 320, 1280))
+    profiling.count("launch.fused_spatial", 5, shape=(48, 1024, 320, 145))
     assert ops.launch_counts_by_shape() == {"flash_attention": {(1, 256, 2, 64): 3},
                                             "flash_attention_bwd": {(1, 256, 2, 64): 1},
                                             "geglu_ffn": {(4096, 320, 1280): 2},
                                             "fused_spatial": {(48, 1024, 320, 145): 5}}
+    assert ops.launch_counts() == {"flash_attention": 3, "flash_attention_bwd": 1,
+                                   "geglu_ffn": 2, "splat_composite": 0,
+                                   "splat_composite_bwd": 0, "fused_spatial": 5}
     ops.reset_launch_counts()
     assert ops.launch_counts_by_shape() == {"flash_attention": {}, "flash_attention_bwd": {},
                                             "geglu_ffn": {}, "fused_spatial": {}}
+    assert not any(ops.launch_counts().values())
 
 
 def test_attention_mask_and_bias_match_jax():

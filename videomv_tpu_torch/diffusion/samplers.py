@@ -8,16 +8,20 @@ and PLMS, whose first step is the improved-Euler bootstrap and whose later
 steps climb the Adams–Bashforth ladder over the last three eps (the JAX
 package's repair of the reference's PLMS). A Python loop over the step
 sequence replaces ``lax.scan``. The latents stay float32; the denoiser casts
-to its own dtype.
+to its own dtype. DDIM traces each step (span ``sampler.step``, counter
+``sampler.steps``) and each plain step's CFG forward (``sampler.forward``,
+``sampler.forwards``) through ``utils.profiling``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .gaussian import GaussianDiffusion, clip_x0
 
 __all__ = ["ddim_reverse_sample_loop", "ddim_sample_loop", "ddim_timestep_seq",
@@ -37,12 +41,16 @@ def ddim_timestep_seq(num_timesteps: int, ddim_timesteps: int) -> np.ndarray:
 
 def _guided_prediction(diffusion: GaussianDiffusion, model_fn: ModelFn,
                        xt: torch.Tensor, t: torch.Tensor,
-                       guide_scale: Optional[float]) -> torch.Tensor:
+                       guide_scale: Optional[float],
+                       forward_span: Optional[str] = None) -> torch.Tensor:
     """Raw (possibly guided) model prediction; guidance mixes
-    ``u + s·(c − u)`` on the mean channels only."""
+    ``u + s·(c − u)`` on the mean channels only. ``forward_span`` names a
+    span around the model call."""
+    with profiling.span(forward_span) if forward_span else contextlib.nullcontext():
+        out = model_fn(xt, diffusion.scale_timesteps(t))
     if guide_scale is None:
-        return model_fn(xt, diffusion.scale_timesteps(t))
-    y_out, u_out = model_fn(xt, diffusion.scale_timesteps(t))
+        return out
+    y_out, u_out = out
     dim = y_out.shape[1] if diffusion.var_type.startswith("fixed") else y_out.shape[1] // 2
     mixed = u_out[:, :dim] + guide_scale * (y_out[:, :dim] - u_out[:, :dim])
     return torch.cat([mixed, y_out[:, dim:]], dim=1)
@@ -111,16 +119,23 @@ def ddim_sample_loop(
                  if refine_fn is not None else set())
     xt = noise
     for i, step in enumerate(steps):
-        t = torch.full((b,), int(step), dtype=torch.long, device=noise.device)
-        z = None
-        if eta > 0:
-            z = (step_noise[i].to(xt) if step_noise is not None else
-                 torch.randn(xt.shape, generator=generator, device=xt.device, dtype=xt.dtype))
         refine = i in refine_at
-        out = _guided_prediction(diffusion, refine_fn if refine else model_fn, xt, t,
-                                 guide_scale)
-        x0 = _pred_x0(diffusion, out, xt, t, clamp, percentile, refine)
-        xt = _ddim_update(diffusion, x0, xt, t, stride, eta, z)
+        with profiling.span("sampler.step", index=i, refine=refine):
+            profiling.count("sampler.steps")
+            t = torch.full((b,), int(step), dtype=torch.long, device=noise.device)
+            z = None
+            if eta > 0:
+                z = (step_noise[i].to(xt) if step_noise is not None else
+                     torch.randn(xt.shape, generator=generator, device=xt.device,
+                                 dtype=xt.dtype))
+            if refine:
+                out = _guided_prediction(diffusion, refine_fn, xt, t, guide_scale)
+            else:
+                profiling.count("sampler.forwards")
+                out = _guided_prediction(diffusion, model_fn, xt, t, guide_scale,
+                                         "sampler.forward")
+            x0 = _pred_x0(diffusion, out, xt, t, clamp, percentile, refine)
+            xt = _ddim_update(diffusion, x0, xt, t, stride, eta, z)
     return xt
 
 

@@ -24,11 +24,17 @@ inference_i2vgen_entrance`` the items of ``test_list_path`` are image paths
 (an empty list is an error), the outputs are named after the image file, and
 no ``.ply`` is written. ``VIDEOMV_ENABLE_FUSED_SPATIAL=1`` in the environment
 runs the UNet's 32² spatial transformers as one fused CUDA kernel each.
+
+``--trace DIR`` traces every request (``utils.profiling``): it logs one line
+a request (host and device ms by span, the counters, the render's pairs kept
+of those demanded, the peak device memory), writes the first item's Chrome
+trace to ``DIR/trace.json`` and logs that trace's idle device time by span.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import re
@@ -43,6 +49,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when asked for)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="trace every request and write the first item's trace under DIR")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
 
@@ -57,6 +65,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
 
     from ..config import load_inference_config
     from ..parallel.mesh import init_distributed, local_device
+    from ..utils import profiling
     from ..utils.device import resolve_device
     from ..utils.video_io import save_multiview_video
     from .i2v import I2VPipeline
@@ -99,19 +108,32 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     fp = bool(cfg.get("frame_parallel", False))
     written = []
 
-    def run(item, seed, refine):
-        if is_i2v:
-            return pipe.generate_from_image(item, steps=steps, use_gs_refine=refine, seed=seed,
-                                            frame_parallel=fp)
-        return pipe.generate(item, steps=steps, use_gs_refine=refine, seed=seed,
-                             frame_parallel=fp)
+    if args.trace:
+        profiling.enable()
 
-    def save(path, frames, caption, t0):
+    def run(item, seed, refine):
+        """One request: its output and seconds."""
+        t0 = time.time()
+        if args.trace and device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        if is_i2v:
+            out = pipe.generate_from_image(item, steps=steps, use_gs_refine=refine, seed=seed,
+                                           frame_parallel=fp)
+        else:
+            out = pipe.generate(item, steps=steps, use_gs_refine=refine, seed=seed,
+                                frame_parallel=fp)
+        if args.trace:
+            log_request(profiling.requests()[-1], device)
+        return out, time.time() - t0
+
+    def save(path, frames, caption, seconds):
         """Rank 0 writes (every rank sampled)."""
         if rank == 0:
+            t0 = time.time()
             written.append(save_multiview_video(path, frames, caption=caption))
-            logging.info("saved %s (%.1fs)", written[-1], time.time() - t0)
+            logging.info("saved %s (%.1fs)", written[-1], seconds + time.time() - t0)
 
+    first = profiling.trace(args.trace) if args.trace else contextlib.nullcontext()
     for r in range(rounds):
         for idx, item in enumerate(items):
             seed = int(cfg.get("seed", 0)) + r
@@ -119,19 +141,38 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
             name = os.path.splitext(os.path.basename(item))[0] if is_i2v else item
             cap_name = re.sub(r"[^\w\s]", "", name).replace(" ", "_")[:60]
             stem = os.path.join(log_dir, f"{idx:04d}_{cap_name}_{seed}")
-            t0 = time.time()
-            out = run(item, seed, refine=False)
-            save(stem + ".mp4", out["frames"], name, t0)
-            if use_refine:
-                t0 = time.time()
-                out_gs = run(item, seed, refine=True)
-                save(stem + "_gs.mp4", out_gs["frames"], name, t0)
+            with first as prof:  # the first item's requests, under the profiler
+                out, dt = run(item, seed, refine=False)
+                out_gs, dt_gs = run(item, seed, refine=True) if use_refine else (None, 0)
+            if prof is not None:
+                logging.info("trace of the first item in %s; idle device seconds by span: %s",
+                             args.trace, {k: round(v, 4) for k, v in
+                                          profiling.idle_by_span(prof).items()})
+                first = contextlib.nullcontext()
+            save(stem + ".mp4", out["frames"], name, dt)
+            if out_gs is not None:
+                save(stem + "_gs.mp4", out_gs["frames"], name, dt_gs)
                 if bool(cfg.get("save_ply", False)) and not is_i2v and rank == 0:
                     pipe.export_ply(out_gs["frames"], stem + ".ply")
                     written.append(stem + ".ply")
                     logging.info("saved %s", written[-1])
     logging.info("inference complete")
     return written
+
+
+def log_request(record: dict, device) -> None:
+    """One line for a traced request: host and device ms by span, the
+    counters, the render's pairs kept of those demanded, the peak memory."""
+    from ..utils import profiling
+
+    spans = "; ".join(f"{k} x{v['n']} {v['host_ms']:.1f}/{v['dev_ms']:.1f}"
+                      for k, v in profiling.summarize(record).items())
+    counts = record["counts"]
+    pairs = (f"{counts['splat.pairs_kept']} of {counts['splat.pairs_demanded']}"
+             if "splat.pairs_demanded" in counts else "no render")
+    peak = profiling.device_memory_stats(device)["peak_bytes_in_use_gb"]
+    logging.info("request %d, ms by span (host/device): %s; counters %s; pairs kept %s; "
+                 "peak %.2f GiB", record["id"], spans, counts, pairs, peak)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ VAE latent of the reference frame as conditioning, an empty text prompt, a
 zero image feature for the unconditional CFG row (``use_zero_infer``),
 cosine / zero-terminal-SNR v-prediction diffusion, guidance 6.0, and the
 Gaussian-splat refine of the T2V pipeline with the image conditioning kept
-in its UNet forward.
+in its UNet forward. A request is traced as ``T2VPipeline.generate`` is, with
+the image's encodes as ``pipeline.encode.image_clip`` and
+``pipeline.encode.local_latent``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..diffusion import ddim_sample_loop
 from ..models.clip import VIT_MEAN, VIT_STD, OpenCLIPTextVisual
 from ..models.unet_i2v import UNetSD_I2VGen
 from ..training.checkpoints import rename_clip_joint_key
+from ..utils import profiling
 from .pipeline import T2VPipeline, unet_kwargs_from_cfg
 from .refine import REFINE_VIEW_IDXS, make_refine_fn
 
@@ -81,23 +84,25 @@ class I2VPipeline(T2VPipeline):
         """float RGB [H, W, 3] in [0, 1] → CLIP image embedding [1, embed_dim].
         The resize to 224² is bilinear and antialiased (it shrinks), as
         ``jax.image.resize`` does."""
-        x = torch.as_tensor(np.asarray(rgb, np.float32), device=self.device)
-        x = x.permute(2, 0, 1)[None]
-        if x.shape[-2:] != (224, 224):
-            x = F.interpolate(x, size=(224, 224), mode="bilinear", antialias=True,
-                              align_corners=False)
-        mean = torch.as_tensor(VIT_MEAN, device=self.device).reshape(1, 3, 1, 1)
-        std = torch.as_tensor(VIT_STD, device=self.device).reshape(1, 3, 1, 1)
-        return self.clip.encode_image(((x - mean) / std).to(self.dtype))
+        with profiling.span("pipeline.encode.image_clip"):
+            x = torch.as_tensor(np.asarray(rgb, np.float32), device=self.device)
+            x = x.permute(2, 0, 1)[None]
+            if x.shape[-2:] != (224, 224):
+                x = F.interpolate(x, size=(224, 224), mode="bilinear", antialias=True,
+                                  align_corners=False)
+            mean = torch.as_tensor(VIT_MEAN, device=self.device).reshape(1, 3, 1, 1)
+            std = torch.as_tensor(VIT_STD, device=self.device).reshape(1, 3, 1, 1)
+            return self.clip.encode_image(((x - mean) / std).to(self.dtype))
 
     @torch.no_grad()
     def encode_local_latent(self, rgb: np.ndarray) -> torch.Tensor:
         """float RGB [H, W, 3] → VAE latent [1, 4, 1, h, w] (posterior mode,
         scale-factored)."""
-        x = torch.as_tensor(np.asarray(rgb, np.float32), device=self.device)
-        x = x.permute(2, 0, 1)[None] * 2.0 - 1.0
-        z = self.vae.encode_first_stage(x.to(self.dtype), self.scale_factor)
-        return z[:, :, None]
+        with profiling.span("pipeline.encode.local_latent"):
+            x = torch.as_tensor(np.asarray(rgb, np.float32), device=self.device)
+            x = x.permute(2, 0, 1)[None] * 2.0 - 1.0
+            z = self.vae.encode_first_stage(x.to(self.dtype), self.scale_factor)
+            return z[:, :, None]
 
     # ------------------------------------------------------------- sampler
 
@@ -162,30 +167,33 @@ class I2VPipeline(T2VPipeline):
         ``torch.Generator`` on the device); ``noise`` replaces it.
         ``frame_parallel`` spreads the sample's frames over the ranks, as
         ``T2VPipeline.generate`` does."""
-        cfg = self.cfg
-        guide_scale = guide_scale if guide_scale is not None else float(cfg.get("guide_scale", 6.0))
-        seed = seed if seed is not None else int(cfg.get("seed", 0))
+        with profiling.request("pipeline.request", self.device):
+            cfg = self.cfg
+            if guide_scale is None:
+                guide_scale = float(cfg.get("guide_scale", 6.0))
+            seed = seed if seed is not None else int(cfg.get("seed", 0))
 
-        rgb = load_white_composite(image_path, self.resolution[0])
-        y_words = self.encode_text([""])
-        negative_words = self._negative()
-        y_visual = self.encode_image_clip(rgb)
-        zero_img = (torch.zeros_like(y_visual) if bool(cfg.get("use_zero_infer", True))
-                    else y_visual)
-        local = self.encode_local_latent(rgb)
+            rgb = load_white_composite(image_path, self.resolution[0])
+            y_words = self.encode_text([""])
+            negative_words = self._negative()
+            y_visual = self.encode_image_clip(rgb)
+            zero_img = (torch.zeros_like(y_visual) if bool(cfg.get("use_zero_infer", True))
+                        else y_visual)
+            local = self.encode_local_latent(rgb)
 
-        cam, *gs = self._get_cameras(elevation, camera_distance)
-        gs = tuple(gs) if use_gs_refine else None
-        if noise is None:
-            noise = self._noise(1, seed)
-        mesh = self._serving_mesh() if frame_parallel else None
-        if mesh is None:
-            self._whole_unet("generate_from_image(frame_parallel=False)")
-            latents = self.sample_i2v(noise, y_words, negative_words, cam, local, y_visual,
-                                      zero_img, steps, guide_scale, gs=gs)
-            frames = self._decode_latents(latents)
-        else:
-            latents, frames = self._frame_parallel(mesh, noise, cam, lambda nz, cm: self.sample_i2v(
-                nz, y_words, negative_words, cm, local, y_visual, zero_img, steps, guide_scale,
-                gs=gs, view_mesh=mesh if gs else None))
-        return {"frames": frames[0].cpu().numpy(), "latents": latents.cpu().numpy()}
+            cam, *gs = self._get_cameras(elevation, camera_distance)
+            gs = tuple(gs) if use_gs_refine else None
+            if noise is None:
+                noise = self._noise(1, seed)
+            mesh = self._serving_mesh() if frame_parallel else None
+            if mesh is None:
+                self._whole_unet("generate_from_image(frame_parallel=False)")
+                latents = self.sample_i2v(noise, y_words, negative_words, cam, local, y_visual,
+                                          zero_img, steps, guide_scale, gs=gs)
+                frames = self._decode_latents(latents)
+            else:
+                latents, frames = self._frame_parallel(
+                    mesh, noise, cam, lambda nz, cm: self.sample_i2v(
+                        nz, y_words, negative_words, cm, local, y_visual, zero_img, steps,
+                        guide_scale, gs=gs, view_mesh=mesh if gs else None))
+            return self._to_host(frames, latents)

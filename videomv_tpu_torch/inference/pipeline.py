@@ -33,6 +33,11 @@ on the device, bf16 compute by default with ``sampling_dtype: float32`` as
 the escape hatch (bf16 is what reaches the CUDA kernels). ``generate(seed=s)``
 is deterministic (noise from a ``torch.Generator`` seeded with ``s``) but is
 not the JAX package's sample for ``s``: the two generators differ.
+
+A request (``generate``) is traced through ``utils.profiling``: the root span
+``pipeline.request``, the encodes (``pipeline.encode.*``), the sampler's
+steps, the decode (``pipeline.decode``) and the copies to the host
+(``pipeline.to_host``).
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from ..parallel.infer import (
 )
 from ..parallel.mesh import make_mesh, shard_batch, world_size
 from ..parallel.tp import place_params_tp
+from ..utils import profiling
 from ..training.checkpoints import (
     init_models,
     load_matched,
@@ -248,8 +254,9 @@ class T2VPipeline:
     @torch.no_grad()
     def encode_text(self, prompts: Sequence[str]) -> torch.Tensor:
         """Prompts → y_words [B, 77, width] (penultimate-layer sequence)."""
-        toks = torch.as_tensor(tokenize(list(prompts)), dtype=torch.long, device=self.device)
-        return self.clip.encode_text(toks)[1]
+        with profiling.span("pipeline.encode.text"):
+            toks = torch.as_tensor(tokenize(list(prompts)), dtype=torch.long, device=self.device)
+            return self.clip.encode_text(toks)[1]
 
     def _get_cameras(self, elevation: float, camera_distance: float):
         """The orbit's camera conditioning [1, F, 16] and its splat cameras:
@@ -383,11 +390,18 @@ class T2VPipeline:
     @torch.no_grad()
     def _decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """[B, 4, F, h, w] → [B, F, H, W, 3] uint8, on the device."""
-        b, c, f, h, w = latents.shape
-        z = latents.permute(0, 2, 1, 3, 4).reshape(b * f, c, h, w) / self.scale_factor
-        img = (self.vae.decode(z) * 0.5 + 0.5).clamp(0.0, 1.0)
-        img = img.reshape(b, f, 3, img.shape[-2], img.shape[-1]).permute(0, 1, 3, 4, 2)
-        return torch.round(img * 255.0).to(torch.uint8)
+        with profiling.span("pipeline.decode"):
+            b, c, f, h, w = latents.shape
+            z = latents.permute(0, 2, 1, 3, 4).reshape(b * f, c, h, w) / self.scale_factor
+            img = (self.vae.decode(z) * 0.5 + 0.5).clamp(0.0, 1.0)
+            img = img.reshape(b, f, 3, img.shape[-2], img.shape[-1]).permute(0, 1, 3, 4, 2)
+            return torch.round(img * 255.0).to(torch.uint8)
+
+    @staticmethod
+    def _to_host(frames: torch.Tensor, latents: torch.Tensor) -> Dict[str, np.ndarray]:
+        """A request's result: the first sample's views and every latent."""
+        with profiling.span("pipeline.to_host"):
+            return {"frames": frames[0].cpu().numpy(), "latents": latents.cpu().numpy()}
 
     # ---------------------------------------------------------- generate
 
@@ -420,29 +434,33 @@ class T2VPipeline:
         ``frame_parallel`` spreads the sample's frames over the ranks (module
         docstring; every rank calls and returns the whole sample; one rank
         runs it alone). ``noise`` [1, 4, F, h, w] replaces the seed's."""
-        cfg = self.cfg
-        guide_scale = guide_scale if guide_scale is not None else float(cfg.get("guide_scale", 9.0))
-        seed = seed if seed is not None else int(cfg.get("seed", 0))
-        if "3d asset" not in prompt:
-            prompt = prompt + ", 3d asset"
-        if y_words is None:
-            y_words = self.encode_text([prompt])
-        if negative_words is None:
-            negative_words = self._negative()
-        cam, *gs = self._get_cameras(elevation, camera_distance)
-        gs = tuple(gs) if use_gs_refine else None
-        if noise is None:
-            noise = self._noise(1, seed)
-        mesh = self._serving_mesh() if frame_parallel else None
-        if mesh is None:
-            self._whole_unet("generate(frame_parallel=False)")
-            latents = self.sample(noise, y_words, negative_words, cam, steps, guide_scale, gs=gs)
-            frames = self._decode_latents(latents)
-        else:
-            latents, frames = self._frame_parallel(mesh, noise, cam, lambda nz, cm: self.sample(
-                nz, y_words, negative_words, cm, steps, guide_scale, gs=gs,
-                view_mesh=mesh if gs else None))
-        return {"frames": frames[0].cpu().numpy(), "latents": latents.cpu().numpy()}
+        with profiling.request("pipeline.request", self.device):
+            cfg = self.cfg
+            if guide_scale is None:
+                guide_scale = float(cfg.get("guide_scale", 9.0))
+            seed = seed if seed is not None else int(cfg.get("seed", 0))
+            if "3d asset" not in prompt:
+                prompt = prompt + ", 3d asset"
+            if y_words is None:
+                y_words = self.encode_text([prompt])
+            if negative_words is None:
+                negative_words = self._negative()
+            cam, *gs = self._get_cameras(elevation, camera_distance)
+            gs = tuple(gs) if use_gs_refine else None
+            if noise is None:
+                noise = self._noise(1, seed)
+            mesh = self._serving_mesh() if frame_parallel else None
+            if mesh is None:
+                self._whole_unet("generate(frame_parallel=False)")
+                latents = self.sample(noise, y_words, negative_words, cam, steps, guide_scale,
+                                      gs=gs)
+                frames = self._decode_latents(latents)
+            else:
+                latents, frames = self._frame_parallel(
+                    mesh, noise, cam, lambda nz, cm: self.sample(
+                        nz, y_words, negative_words, cm, steps, guide_scale, gs=gs,
+                        view_mesh=mesh if gs else None))
+            return self._to_host(frames, latents)
 
     def _noise(self, b: int, seed: int) -> torch.Tensor:
         """The initial noise [b, 4, F, h, w] of ``seed``, on the device."""

@@ -17,6 +17,11 @@ With a serving mesh (``view_mesh``) the refine runs on one rank's share:
   (``render_gaussians_view_sharded``);
 - ``view_mesh_dim='batch'`` (data-parallel serving): the rank holds whole
   rows and refines them alone.
+
+Each call is traced through ``utils.profiling``: the span ``refine`` (counter
+``refine.calls``) and its five stages ``refine.unet`` (the denoiser and the
+x0 estimate), ``refine.decode_views``, ``refine.lgm``, ``refine.render``
+(projection, binning, composite) and ``refine.encode``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from ..data.cameras import GSCameraSettings
 from ..ops.gaussian_splat import render_gaussians, render_gaussians_view_sharded
 from ..parallel.infer import FrameShard
+from ..utils import profiling
 
 __all__ = ["REFINE_VIEW_IDXS", "make_refine_fn"]
 
@@ -107,48 +113,64 @@ def make_refine_fn(
         imgs = imgs.reshape(b2, k, 3, *imgs.shape[-2:])
         return ((imgs * 0.5 + 0.5).clamp(0.0, 1.0) - vid_mean) / vid_std
 
-    @torch.no_grad()
-    def refine_fn(xt: torch.Tensor, t: torch.Tensor):
+    def unet_x0(xt, t):
+        """The denoiser's x0 estimate of the refined rows."""
         if shared:
             x2, t2, y2, c2 = xt, t, y, cam
         else:
             x2, t2 = torch.cat([xt, xt]), torch.cat([t, t])
             y2, c2 = torch.cat([y, zero_y]), torch.cat([cam, cam])
         eps = unet(x2, t2, y=y2, camera_data=c2)
-        fake_x0 = diffusion.pred_to_x0(eps, x2, t2)
+        return diffusion.pred_to_x0(eps, x2, t2)
 
-        b2 = fake_x0.shape[0]
+    def decode_views(fake_x0):
+        """The canonical views of every row: [b2, 4, 3, H, W]."""
         if shard is None:
-            # decode the canonical views of every row: [b2, 4, 3, H, W]
-            imgs = decode(fake_x0.index_select(2, idxs))
-        else:
-            # decode the canonical views among this rank's frames, gather
-            # every rank's (padded to the same count) and put them in order
-            local = decode(fake_x0.index_select(2, mine)) if len(mine) else None
-            size = gs_rays.shape[-1]  # the LGM's input size, the decode's too
-            part = fake_x0.new_zeros((b2, pad, 3, size, size))
-            if local is not None:
-                part[:, :len(mine)] = local
-            imgs = shard.gather(part, 1).index_select(1, order)
+            return decode(fake_x0.index_select(2, idxs))
+        # decode the canonical views among this rank's frames, gather every
+        # rank's (padded to the same count) and put them in order
+        local = decode(fake_x0.index_select(2, mine)) if len(mine) else None
+        size = gs_rays.shape[-1]  # the LGM's input size, the decode's too
+        part = fake_x0.new_zeros((fake_x0.shape[0], pad, 3, size, size))
+        if local is not None:
+            part[:, :len(mine)] = local
+        return shard.gather(part, 1).index_select(1, order)
 
-        rays = gs_rays.index_select(1, idxs).expand(b2, -1, -1, -1, -1)
-        gaussians = lgm(torch.cat([imgs, rays], dim=2))       # [b2, N, 14]
-
+    def render(gaussians):
+        """Every view of this rank's share: [b2, V, 3, S, S]."""
+        b2 = gaussians.shape[0]
         kw = dict(bg_color=bg, img_size=out_size, fovy_deg=gs_settings.fovy, packed=True)
         cv = cam_view.expand(b2, -1, -1, -1)
         cvp = cam_view_proj.expand(b2, -1, -1, -1)
         if view_mesh is None:
-            out = render_gaussians(gaussians, cv, cvp, **kw)
-        else:
-            out = render_gaussians_view_sharded(view_mesh, gaussians, cv, cvp,
-                                                axis=view_mesh_axis, shard_dim=view_mesh_dim, **kw)
-        renders = out["image"]                                  # [b2, V, 3, S, S]
-        V = renders.shape[1]
+            return render_gaussians(gaussians, cv, cvp, **kw)["image"]
+        return render_gaussians_view_sharded(view_mesh, gaussians, cv, cvp, axis=view_mesh_axis,
+                                             shard_dim=view_mesh_dim, **kw)["image"]
+
+    def encode(renders):
+        """The renders' latents [b2, 4, V, h, w]."""
+        b2, V = renders.shape[:2]
         r = renders.reshape(b2 * V, 3, out_size, out_size)
         if out_size != in_size:  # pixel-centre nearest, as jax.image.resize
             r = F.interpolate(r, size=(in_size, in_size), mode="nearest-exact")
         z = vae.encode_first_stage((r - 0.5) / 0.5, scale_factor).float()
-        z = z.reshape(b2, V, 4, *z.shape[-2:]).permute(0, 2, 1, 3, 4)
+        return z.reshape(b2, V, 4, *z.shape[-2:]).permute(0, 2, 1, 3, 4)
+
+    @torch.no_grad()
+    def refine_fn(xt: torch.Tensor, t: torch.Tensor):
+        profiling.count("refine.calls")
+        with profiling.span("refine"):
+            with profiling.span("refine.unet"):
+                fake_x0 = unet_x0(xt, t)
+            with profiling.span("refine.decode_views"):
+                imgs = decode_views(fake_x0)
+            with profiling.span("refine.lgm"):
+                rays = gs_rays.index_select(1, idxs).expand(imgs.shape[0], -1, -1, -1, -1)
+                gaussians = lgm(torch.cat([imgs, rays], dim=2))       # [b2, N, 14]
+            with profiling.span("refine.render"):
+                renders = render(gaussians)
+            with profiling.span("refine.encode"):
+                z = encode(renders)
         if shared:
             return z, z
         return z[:batch], z[batch:]

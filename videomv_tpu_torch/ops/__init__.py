@@ -4,6 +4,7 @@ a hand-written CUDA kernel beside its plain PyTorch twin (modules
 first and the last with a forward and a backward kernel), and the
 Gaussian-splat geometry around them."""
 
+from ..utils import profiling
 from . import flash_attention, fused_ffn, fused_spatial, splat
 from .attention import attention_eligible, dot_product_attention
 from .fused_ffn import ffn_eligible, geglu_ffn, geglu_ffn_reference
@@ -31,32 +32,24 @@ __all__ = [
 ]
 
 
+# the kernels' launch counters in ``utils.profiling``'s registry
+_KERNELS = ("flash_attention", "flash_attention_bwd", "geglu_ffn", "splat_composite",
+            "splat_composite_bwd", "fused_spatial")
+_BY_SHAPE = ("flash_attention", "flash_attention_bwd", "geglu_ffn", "fused_spatial")
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
-    return {"flash_attention": flash_attention.LAUNCHES,
-            "flash_attention_bwd": flash_attention.BWD_LAUNCHES, "geglu_ffn": fused_ffn.LAUNCHES,
-            "splat_composite": splat.LAUNCHES, "splat_composite_bwd": splat.BWD_LAUNCHES,
-            "fused_spatial": fused_spatial.LAUNCHES}
+    counts = profiling.counts()
+    return {k: counts.get(f"launch.{k}", 0) for k in _KERNELS}
 
 
 def launch_counts_by_shape() -> dict:
     """The attention (forward and backward), FFN and fused spatial-block
     kernels' launches since the last reset, split by the shape of each
     launch: ``(B, S, H, D)``, ``(T, C, I)`` and ``(R, S, C, L)``."""
-    return {"flash_attention": dict(flash_attention.LAUNCHES_BY_SHAPE),
-            "flash_attention_bwd": dict(flash_attention.BWD_LAUNCHES_BY_SHAPE),
-            "geglu_ffn": dict(fused_ffn.LAUNCHES_BY_SHAPE),
-            "fused_spatial": dict(fused_spatial.LAUNCHES_BY_SHAPE)}
+    return {k: profiling.counts_by_shape(f"launch.{k}") for k in _BY_SHAPE}
 
 
 def reset_launch_counts() -> None:
-    flash_attention.LAUNCHES = 0
-    flash_attention.LAUNCHES_BY_SHAPE.clear()
-    flash_attention.BWD_LAUNCHES = 0
-    flash_attention.BWD_LAUNCHES_BY_SHAPE.clear()
-    fused_ffn.LAUNCHES = 0
-    fused_ffn.LAUNCHES_BY_SHAPE.clear()
-    splat.LAUNCHES = 0
-    splat.BWD_LAUNCHES = 0
-    fused_spatial.LAUNCHES = 0
-    fused_spatial.LAUNCHES_BY_SHAPE.clear()
+    profiling.reset_counts(f"launch.{k}" for k in _KERNELS)

@@ -8,10 +8,10 @@ the input (bf16 only, self-attention, S % 64 == 0, D in {64, 128}; the
 fp32 sampling mode therefore never reaches it). On a CPU tensor it runs
 ``attention_reference``, the plain twin.
 
-``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel; ``LAUNCHES_BY_SHAPE`` holds the
-same count split by the ``(B, S, H, D)`` of each launch. ``BWD_LAUNCHES`` and
-``BWD_LAUNCHES_BY_SHAPE`` count the backward's (one a call of
+The counter ``launch.flash_attention`` of ``utils.profiling`` counts kernel
+launches (and nothing else), so a run can show that its main path went
+through the kernel, by the ``(B, S, H, D)`` of each launch too;
+``launch.flash_attention_bwd`` counts the backward's (one a call of
 ``csrc/flash_attention_bwd.cu``'s entry, which runs its three kernels).
 
 Under grad ``flash_attention`` is a ``torch.autograd.Function`` like the JAX
@@ -32,17 +32,13 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
-__all__ = ["BWD_LAUNCHES", "BWD_LAUNCHES_BY_SHAPE", "LAUNCHES", "LAUNCHES_BY_SHAPE",
-           "VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA", "attention_backward_reference",
+__all__ = ["VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA", "attention_backward_reference",
            "attention_lse_reference", "attention_reference", "attention_tensor_map",
            "attention_variant", "flash_attention", "fp32_logits"]
 
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: dict = {}
-BWD_LAUNCHES = 0
-BWD_LAUNCHES_BY_SHAPE: dict = {}
 # keys a tile of the plain twins' blockwise loop (the kernels' tile)
 TWIN_BLOCK = 64
 
@@ -199,7 +195,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One kernel launch; ``variant`` (for measurements that time both
     kernels on one input) overrides the choice by shape and must take it.
     Returns o, or ``(o, lse)`` with ``with_lse``."""
-    global LAUNCHES
     _check_cuda_inputs(q, k, v)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
@@ -211,15 +206,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attention_variant(b, s, h, d) if variant is None else variant,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vmv_flash_attn_fwd")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(b, s, h, d)] = LAUNCHES_BY_SHAPE.get((b, s, h, d), 0) + 1
+    profiling.count("launch.flash_attention", shape=(b, s, h, d))
     return (out, lse) if with_lse else out
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                 lse: torch.Tensor, grad: torch.Tensor):
     """One call of the backward kernels: ``(dq, dk, dv)``."""
-    global BWD_LAUNCHES
     _check_cuda_inputs(q, k, v)
     _check_cuda_inputs(q, o, grad)
     b, s, h, d = q.shape
@@ -235,8 +228,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tens
         grad.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, s, h, d, float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vmv_flash_attn_bwd")
-    BWD_LAUNCHES += 1
-    BWD_LAUNCHES_BY_SHAPE[(b, s, h, d)] = BWD_LAUNCHES_BY_SHAPE.get((b, s, h, d), 0) + 1
+    profiling.count("launch.flash_attention_bwd", shape=(b, s, h, d))
     return dq, dk, dv
 
 

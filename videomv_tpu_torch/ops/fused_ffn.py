@@ -12,9 +12,8 @@ Two kernels sit behind the one entry point, chosen by shape
 (``ffn_variant``): the wgmma kernel for the UNet's widths, the mma.sync
 kernel for the rest.
 
-``LAUNCHES`` counts kernel launches (and nothing else);
-``LAUNCHES_BY_SHAPE`` holds the same count split by the ``(T, C, I)`` of
-each launch.
+The counter ``launch.geglu_ffn`` of ``utils.profiling`` counts kernel
+launches (and nothing else), by the ``(T, C, I)`` of each launch too.
 
 Under grad ``geglu_ffn`` is a ``torch.autograd.Function`` like the JAX
 package's ``custom_vjp``: the forward is the kernel, the backward
@@ -28,14 +27,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_SHAPE", "VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA",
+__all__ = ["VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA",
            "WGMMA_WIDTHS", "ffn_eligible", "ffn_plan", "ffn_tensor_maps", "ffn_variant",
            "geglu_ffn", "geglu_ffn_reference"]
 
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: dict = {}
 
 # The two hand-written kernels behind ``vmv_geglu_ffn_fwd`` (csrc/fused_ffn.cu):
 # the wgmma kernel (TMA-staged weight tiles, register accumulators) is
@@ -145,7 +143,6 @@ def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
 def _launch(x, w1, b1, w2, b2, variant=None):
     """One kernel launch; ``variant`` (for measurements that time both
     kernels on one input) overrides the choice by shape and must take it."""
-    global LAUNCHES
     _check_cuda_inputs(x, w1, b1, w2, b2)
     t, c = x.shape
     inner = w2.shape[1]
@@ -156,8 +153,7 @@ def _launch(x, w1, b1, w2, b2, variant=None):
         out.data_ptr(), t, c, inner, ffn_variant(t, c, inner) if variant is None else variant,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "vmv_geglu_ffn_fwd")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(t, c, inner)] = LAUNCHES_BY_SHAPE.get((t, c, inner), 0) + 1
+    profiling.count("launch.geglu_ffn", shape=(t, c, inner))
     return out
 
 

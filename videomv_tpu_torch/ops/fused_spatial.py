@@ -24,9 +24,9 @@ width (C = 320, 5 heads, context width 1024), the first port's mma.sync kernel f
 takes. ``spatial_plan`` and ``spatial_tensor_maps`` describe the wgmma
 kernel's tiling and TMA maps as ``csrc/fused_spatial.cu`` lays them out.
 
-``LAUNCHES`` counts wrapper calls that launched the kernel (one call runs its
-four ``__global__`` phases on one stream and counts once);
-``LAUNCHES_BY_SHAPE`` splits the count by ``(R, S, C, L)``.
+The counter ``launch.fused_spatial`` of ``utils.profiling`` counts wrapper
+calls that launched the kernel (one call runs its four ``__global__`` phases
+on one stream and counts once), by ``(R, S, C, L)`` too.
 
 Under grad it is a ``torch.autograd.Function`` like the JAX package's
 ``custom_vjp``: the forward is the kernel, the backward differentiates
@@ -42,11 +42,10 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import _build
 
 __all__ = [
-    "LAUNCHES",
-    "LAUNCHES_BY_SHAPE",
     "PARAM_NAMES",
     "VARIANT_MMA",
     "VARIANT_NAMES",
@@ -60,9 +59,6 @@ __all__ = [
     "spatial_tensor_maps",
     "spatial_variant",
 ]
-
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: dict = {}
 
 D_HEAD = 64
 GROUPS = 32
@@ -293,7 +289,6 @@ def _check_names(params) -> None:
 def _launch(x, ctx, params, n_heads, variant=None):
     """One launch; ``variant`` (for measurements that time both kernels on one
     input) overrides the choice by shape and must take it."""
-    global LAUNCHES
     _check_names(params)
     _check_cuda_inputs(x, ctx, params, n_heads)
     r, s, c = x.shape
@@ -315,9 +310,7 @@ def _launch(x, ctx, params, n_heads, variant=None):
     err = lib.vmv_fused_spatial_fwd(ptrs, r, s, c, kv_len, cc, n_heads, iff, variant,
                                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vmv_fused_spatial_fwd")
-    LAUNCHES += 1
-    key = (r, s, c, kv_len)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    profiling.count("launch.fused_spatial", shape=(r, s, c, kv_len))
     return out
 
 

@@ -17,21 +17,22 @@ The composite (``composite``) replaces the Pallas kernel
 depth-ordered pairs front to back and writes ``[5, 256]`` rows (RGB before
 the background, alpha = 1 − T, depth). On a CUDA tensor it launches the
 kernel, or raises; on a CPU tensor it runs ``composite_reference``, the
-plain twin. ``LAUNCHES`` counts kernel launches and nothing else. The
-kernel served is the culled one (``VARIANT_CULLED``): (view, tile) items in
-the order of ``heaviest_first``, each warp walking only the pairs that may be
-alive in its 8 × 4 pixel block (``cull_masks`` is the plain mirror of that
-conservative test). The first port's kernel (``VARIANT_PER_TILE``), which
-walks every pixel against every pair, stays for comparison; the two give the
-same bits.
+plain twin. The counter ``launch.splat_composite`` of ``utils.profiling``
+counts kernel launches and nothing else. The kernel served is the culled one
+(``VARIANT_CULLED``): (view, tile) items in the order of ``heaviest_first``,
+each warp walking only the pairs that may be alive in its 8 × 4 pixel block
+(``cull_masks`` is the plain mirror of that conservative test). The first
+port's kernel (``VARIANT_PER_TILE``), which walks every pixel against every
+pair, stays for comparison; the two give the same bits.
 
 ``composite`` is a ``torch.autograd.Function`` (the JAX package's
 ``_composite`` custom_vjp): its backward replaces the Pallas kernel
 ``_tile_bwd_kernel`` and returns ``dpayload [R, 16, P]`` from the saved
 payload, segments and forward output. On a CUDA tensor the backward
-launches its kernel (``BWD_LAUNCHES`` counts those launches) or raises; on a
-CPU tensor it runs ``composite_backward_reference``. Every pair belongs to
-one tile, so the gradient has one writer per column and is deterministic.
+launches its kernel (``launch.splat_composite_bwd`` counts those launches)
+or raises; on a CPU tensor it runs ``composite_backward_reference``. Every
+pair belongs to one tile, so the gradient has one writer per column and is
+deterministic.
 The backward kernel served (``BWD_VARIANT_CULLED``) takes the culled
 forward's schedule and masks; the first port's (``BWD_VARIANT_PER_TILE``)
 stays for comparison; the two agree to rounding (the order of the sums over
@@ -58,17 +59,16 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .gaussian_splat import prepare_gaussians, project_prepared
 
 __all__ = [
     "BLOCK_H",
     "BLOCK_W",
-    "BWD_LAUNCHES",
     "BWD_VARIANT_CULLED",
     "BWD_VARIANT_NAMES",
     "BWD_VARIANT_PER_TILE",
-    "LAUNCHES",
     "TILE",
     "VARIANT_CULLED",
     "VARIANT_NAMES",
@@ -87,8 +87,6 @@ __all__ = [
 
 TILE = 16
 MAX_SPAN = 16  # tiles per side a Gaussian may cover (the JAX package's default)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 
 # The two kernels behind ``vmv_splat_composite_fwd`` (csrc/splat_composite.cu):
 # the culled kernel serves every call; the per-tile kernel of the first port
@@ -529,7 +527,6 @@ def composite_backward(payload: torch.Tensor, tile_start: torch.Tensor,
     the plain twin on a CPU tensor. ``variant`` names the kernel, and
     ``order`` replaces the heaviest-first order the culled kernel's entry
     point forms, as for ``_composite_forward``."""
-    global BWD_LAUNCHES
     if not payload.is_cuda:
         return composite_backward_reference(payload, tile_start, tile_count, saved, grad,
                                             n_tiles_side)
@@ -559,7 +556,7 @@ def composite_backward(payload: torch.Tensor, tile_start: torch.Tensor,
         None if scratch is None else scratch.data_ptr(), dpayload.data_ptr(), R, P,
         n_tiles_side, variant, torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(err, "vmv_splat_composite_bwd")
-    BWD_LAUNCHES += 1
+    profiling.count("launch.splat_composite_bwd")
     return dpayload
 
 
@@ -570,7 +567,6 @@ def _composite_forward(payload, tile_start, tile_count, n_tiles_side,
     order the culled kernel's entry point forms by another permutation of
     the (view, tile) items, for measurements of the two kernels and of the
     schedule on one input."""
-    global LAUNCHES
     if not payload.is_cuda:
         return composite_reference(payload, tile_start, tile_count, n_tiles_side)
     _check_cuda_inputs(payload, tile_start, tile_count, n_tiles_side)
@@ -591,7 +587,7 @@ def _composite_forward(payload, tile_start, tile_count, n_tiles_side,
         None if scratch is None else scratch.data_ptr(), out.data_ptr(), R, rows, P,
         n_tiles_side, variant, torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(err, "vmv_splat_composite_fwd")
-    LAUNCHES += 1
+    profiling.count("launch.splat_composite")
     return out
 
 
@@ -642,7 +638,9 @@ def rasterize_binned_batch(gaussians: torch.Tensor, cam_view: torch.Tensor,
                            bg_color: torch.Tensor, max_pairs: int, packed: bool = False):
     """``[B, N, 14]`` Gaussians through ``[B, V, 4, 4]`` cameras: scene prep
     once per scene, projection and binning of all B·V views at once, one
-    composite launch (the counterpart of ``rasterize_pallas_batch``).
+    composite launch (the counterpart of ``rasterize_pallas_batch``). While
+    tracing, the views' pairs demanded and kept (within ``max_pairs``) go to
+    the counters ``splat.pairs_demanded`` and ``splat.pairs_kept``.
     Returns {"image": [B, V, 3, S, S], "alpha": [B, V, 1, S, S], "depth"}."""
     if img_size % TILE:
         raise ValueError(f"img_size {img_size} is not a multiple of {TILE}")
@@ -650,8 +648,11 @@ def rasterize_binned_batch(gaussians: torch.Tensor, cam_view: torch.Tensor,
     prep = {k: v[:, None] for k, v in prepare_gaussians(gaussians).items()}  # [B, 1, ...]
     proj = project_prepared(prep, cam_view, cam_view_proj, img_size, tan_half_fov)
     proj = [p.reshape(B * V, *p.shape[2:]) for p in proj]
-    payload, tile_start, tile_count, _ = bin_pairs(
+    payload, tile_start, tile_count, pairs = bin_pairs(
         *proj, img_size=img_size, max_pairs=max_pairs, packed=packed)
+    if profiling.active():  # summed over the views, read with the request's record
+        profiling.count("splat.pairs_demanded", pairs)
+        profiling.count("splat.pairs_kept", pairs.clamp(max=max_pairs))
     out = untile(composite(payload, tile_start, tile_count, img_size // TILE),
                  img_size // TILE)
     alpha = out[:, 3:4]
