@@ -39,9 +39,11 @@ Phases (each prints its lines; a failed phase exits non-zero):
   6. slice: configs/t2v_infer.yaml as shipped (refine on, shared uncond)
      served at full width, 24 views, 256², 50 DDIM steps, CFG 9.0, bf16 —
      two plain requests, two refined requests (the first of each is
-     warm-up), two plain requests with the fused spatial block switched on,
-     one refined request with full uncond, a PLY export read back, then the
-     CLI's main() once;
+     warm-up), a plain and a refined request served from the UNet's CUDA
+     graphs against the same requests eager (latents bit-equal, launches by
+     shape equal, every forward replayed), two plain requests with the
+     fused spatial block switched on, one refined request with full uncond,
+     a PLY export read back, then the CLI's main() once;
   7. profile: where a request's time goes — CUDA-event times of a CFG
      forward, the VAE decode, the text encode, the parts of one refine
      step and the LGM's plain head_dim-32 attention, and the device
@@ -63,7 +65,9 @@ Phases (each prints its lines; a failed phase exits non-zero):
      the host, and against the switch off; requests from
      data/images/test_obj.png: plain with the switch off, plain with it on,
      refined with it on (the first of each pair is warm-up), with asserted
-     launch counts; one CFG forward by kernel class, on and off; the CLI's
+     launch counts, and the refined request from the CUDA graphs against
+     the eager loop as in the slice phase; one CFG forward by kernel class,
+     on and off; the CLI's
      main() once with the switch on. The script sets and restores
      VIDEOMV_ENABLE_FUSED_SPATIAL around each part; the other phases run
      with it unset;
@@ -2072,6 +2076,50 @@ def _serve(torch, pipe, prompts, refine, tag, pair_log, by_shape=None, want=None
     return outs, counts, dt
 
 
+def _graphs_against_eager(torch, pipe, request, tag, phase):
+    """``request()`` served from the pipeline's CUDA graphs (every signature
+    it meets captured by the requests before), then the same request with
+    the graphs off (the eager loop): the latents bit-equal, the launches by
+    shape equal, every forward of the first a replay. Returns its seconds."""
+    import numpy as np
+
+    from videomv_tpu_torch import ops
+    from videomv_tpu_torch.utils import profiling
+
+    t0 = time.time()
+    graphs, runs = pipe.unet.graphs, {}
+    names = ("unet.forwards", "unet.graph_replays", "unet.graph_captures")
+    for mode in ("graphs", "eager"):
+        pipe.unet.graphs = graphs if mode == "graphs" else None
+        before = profiling.counts()
+        ops.reset_launch_counts()
+        try:
+            out = request()
+        finally:
+            pipe.unet.graphs = graphs
+        torch.cuda.synchronize()
+        after = profiling.counts()
+        runs[mode] = (out["latents"], ops.launch_counts_by_shape(),
+                      {k: after.get(k, 0) - before.get(k, 0) for k in names})
+    (lat, shapes, n), (lat_e, shapes_e, n_e) = runs["graphs"], runs["eager"]
+    diff = float(np.abs(lat.astype(np.float64) - lat_e).max())
+    secs = time.time() - t0
+    say(phase, f"{tag}: CUDA graphs against the eager loop, latents max|d| {diff!r} (bound 0, "
+        f"bit-equal); counters {n} (eager {n_e}); launches by shape "
+        f"{'equal' if shapes == shapes_e else 'DIFFERENT'}; {secs:.1f}s")
+    if diff != 0.0:
+        fail(phase, f"{tag}: latents from the CUDA graphs differ from the eager loop's by "
+             f"max|d| {diff!r} (bound 0)")
+    if shapes != shapes_e:
+        fail(phase, f"{tag}: launches by shape {shapes} from the CUDA graphs, {shapes_e} eager "
+             f"(must be equal)")
+    if n["unet.graph_replays"] != n["unet.forwards"] or n["unet.graph_captures"] != 0:
+        fail(phase, f"{tag}: {n['unet.graph_replays']} of {n['unet.forwards']} forwards "
+             f"replayed, {n['unet.graph_captures']} captures (every forward replayed and none "
+             f"captured expected)")
+    return secs
+
+
 def phase_slice(torch):
     """configs/t2v_infer.yaml as shipped, served on the card: plain and
     refined requests, one full-uncond refined request, a PLY export, then
@@ -2091,11 +2139,28 @@ def phase_slice(torch):
     if cfg.get("gs_refine_uncond") != "shared":
         fail("slice", "configs/t2v_infer.yaml no longer ships gs_refine_uncond: shared")
 
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_reserved() / 2**30, torch.cuda.memory_allocated() / 2**30
     with _PairLog() as pair_log:
         plain, counts_plain, plain_s = _serve(torch, pipe, prompts, False, "plain", pair_log,
                                               PLAIN_BY_SHAPE)
         refined, counts, _ = _serve(torch, pipe, prompts, True, "refined", pair_log,
                                     {"flash_attention": ATTN_SHAPES, "geglu_ffn": FFN_SHAPES})
+        # the UNet's graphs (the 48- and 24-row forwards) were captured above:
+        # their pool is memory reserved that max_memory_allocated does not see
+        torch.cuda.synchronize()
+        pool = [g for g in torch.cuda.memory_snapshot()
+                if tuple(g.get("segment_pool_id", (0, 0))) != (0, 0)]
+        say("slice", f"CUDA graph pool: {sum(g['total_size'] for g in pool) / 2**30:.4f} GiB "
+            f"reserved in {len(pool)} segments, {sum(g['allocated_size'] for g in pool) / 2**30:.4f}"
+            f" GiB of it allocated; memory_reserved {held0[0]:.4f} -> "
+            f"{torch.cuda.memory_reserved() / 2**30:.4f} GiB and memory_allocated {held0[1]:.4f} "
+            f"-> {torch.cuda.memory_allocated() / 2**30:.4f} GiB over the requests that captured "
+            f"them")
+        for refine in (False, True):
+            _graphs_against_eager(torch, pipe, lambda: pipe.generate(
+                prompts[0], steps=50, guide_scale=9.0, use_gs_refine=refine, seed=11),
+                f"{'refined' if refine else 'plain'} request", "slice")
         # the fused block's switch serves T2V too: its 32² blocks over the
         # 77-token text context
         with _FusedSpatialFlag(True):
@@ -2274,6 +2339,9 @@ def phase_i2v(torch):
                                    "plain, switch on")
     refined_on, counts_refined = serve(True, True, I2V_REFINED_ON, I2V_FUSED_BY_SHAPE["refined"],
                                        "refined shared, switch on")
+    with _FusedSpatialFlag(True):
+        _graphs_against_eager(torch, pipe, lambda: pipe.generate_from_image(
+            images[0], steps=50, use_gs_refine=True, seed=21), "refined request, switch on", "i2v")
     # same seed, switch on vs off: two bf16 roundings of one sampler
     d = np.abs(plain_on["latents"] - plain_off["latents"])
     say("i2v", f"plain latents, switch on vs off (same seed): max|d| {d.max():.3e}, mean|d| "

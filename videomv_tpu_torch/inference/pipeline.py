@@ -38,6 +38,11 @@ A request (``generate``) is traced through ``utils.profiling``: the root span
 ``pipeline.request``, the encodes (``pipeline.encode.*``), the sampler's
 steps, the decode (``pipeline.decode``) and the copies to the host
 (``pipeline.to_host``).
+
+The pipeline serves its UNet's forward from CUDA graphs (``unet.graphs``,
+``models/graphed.py``): one a signature (the 48-row CFG forward, the refine's
+cond rows), captured at the second call of each on one device and replayed
+from then on; frame-parallel and tensor-parallel serving stay eager.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from ..data.cameras import (
 from ..data.tokenizer import tokenize
 from ..diffusion import GaussianDiffusion, ddim_sample_loop
 from ..models import AutoencoderKL, CLIPTextTower, UNetSD_T2VBase
+from ..models.graphed import GraphedForward
 from ..models.lgm import LGM, LGMOptions
 from ..ops.ply_io import save_ply
 from ..parallel.collectives import all_gather_cat, broadcast
@@ -247,6 +253,8 @@ class T2VPipeline:
             if any(p.device.type == "meta" for p in m.parameters()):
                 continue  # not initialised or loaded (e.g. a test feeding y_words)
             m.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
+        # the served forward's CUDA graphs, none captured yet for these weights
+        self.unet.graphs = GraphedForward()
         self._negative_cache.clear()
 
     # ---------------------------------------------------------- builders
@@ -309,6 +317,8 @@ class T2VPipeline:
                           mesh_dim_names=("sp", "tp"))
         if in_mesh(mesh):
             self._tp_cut = place_params_tp(mesh, self.unet, head_dim=self.unet.head_dim) > 0
+            if self._tp_cut:  # the cut weights are never replayed from a whole UNet's graph
+                self.unet.graphs = None
         self._sp_mesh = mesh
         return mesh
 

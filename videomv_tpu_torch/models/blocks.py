@@ -327,7 +327,7 @@ class RelativePositionBias(nn.Module):
         max_exact = half // 2
         an = neg.abs()
         large = torch.log(an.clamp_min(1).float() / max_exact) / torch.log(
-            torch.tensor(self.max_distance / max_exact, dtype=torch.float32, device=device))
+            torch.full((), self.max_distance / max_exact, dtype=torch.float32, device=device))
         large = max_exact + (large * (half - max_exact)).to(torch.int32).long()
         large = large.clamp_max(half - 1)
         return (neg < 0).long() * half + torch.where(an < max_exact, an, large)

@@ -33,6 +33,7 @@ from torch import nn
 from ..ops.flash_attention import fp32_logits
 from ..parallel.infer import current_frame_shard
 from .blocks import TimestepMLP, sinusoidal_embedding
+from .graphed import run_forward
 from .unet_t2v import UNetSD_T2VBase
 
 __all__ = ["PreNormAttention", "TransformerV2", "UNetSD_I2VGen", "adaptive_avg_pool_2d"]
@@ -178,6 +179,12 @@ class UNetSD_I2VGen(UNetSD_T2VBase):
         image: Optional[torch.Tensor] = None,
         zero_y: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """Replayed as a CUDA graph where ``self.graphs`` engages
+        (``models/graphed.py``)."""
+        return run_forward(self, self._forward, x=x, t=t, y=y, camera_data=camera_data, fps=fps,
+                           local_image=local_image, image=image, zero_y=zero_y)
+
+    def _forward(self, x, t, y, camera_data, fps, local_image, image, zero_y):
         b, c, f, hh, ww = x.shape
         dt = self.dtype
         if local_image is None:

@@ -67,6 +67,7 @@ from .blocks import (
     sinusoidal_embedding,
     zero_module,
 )
+from .graphed import GraphedForward, run_forward
 
 __all__ = ["UNetSD_T2VBase", "build_unet_plan"]
 
@@ -228,6 +229,8 @@ class UNetSD_T2VBase(nn.Module):
 
         self.out = nn.Sequential(nn.GroupNorm(32, dim, eps=1e-5), nn.SiLU(),
                                  zero_module(nn.Conv2d(dim, out_dim, 3, padding=1)))
+        # the CUDA graphs of a serving pipeline's forward (models/graphed.py)
+        self.graphs: Optional[GraphedForward] = None
 
     def _block(self, in_dim, kind, name, cin, cout):
         if kind == "conv_in":
@@ -316,7 +319,13 @@ class UNetSD_T2VBase(nn.Module):
         """``y=None`` conditions every row on the first token of ``zero_y``
         [B or 1, L, context_dim]. ``video_mask`` [B, F] (the sample's frames,
         whole under frame sharding) and ``focus_present_mask`` [B] reach the
-        rotary temporal blocks only."""
+        rotary temporal blocks only. Replayed as a CUDA graph where
+        ``self.graphs`` engages (``models/graphed.py``)."""
+        return run_forward(self, self._forward, x=x, t=t, y=y, camera_data=camera_data, fps=fps,
+                           zero_y=zero_y, video_mask=video_mask,
+                           focus_present_mask=focus_present_mask)
+
+    def _forward(self, x, t, y, camera_data, fps, zero_y, video_mask, focus_present_mask):
         b, c, f, hh, ww = x.shape
         dt = self.dtype
 

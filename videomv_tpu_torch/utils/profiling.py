@@ -23,7 +23,9 @@ Beside them, the program's own record of where a request's time goes:
 - ``count(name, n=1, shape=None)`` is the counter registry. Host counts are
   always on (the kernels' launch counters are among them). A count that the
   device holds (a tensor) is kept only while tracing, in the open request's
-  record, and is read with it.
+  record, and is read with it. ``snapshot`` / ``counts_since`` take what a
+  piece of work counted, and ``add_counts`` counts it again where that work
+  is replayed without its host code (a CUDA graph).
 - ``idle_by_span(prof)`` charges each idle gap of the device in a finished
   ``torch.profiler`` run to the innermost span open on the host when the
   kernel that ends the gap was launched.
@@ -44,9 +46,9 @@ from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["KEEP", "Event", "active", "clear", "count", "counts", "counts_by_shape",
-           "device_memory_stats", "enable", "idle_by_span", "request", "requests",
-           "reset_counts", "span", "summarize", "trace"]
+__all__ = ["KEEP", "Event", "active", "add_counts", "clear", "count", "counts",
+           "counts_by_shape", "counts_since", "device_memory_stats", "enable", "idle_by_span",
+           "request", "requests", "reset_counts", "snapshot", "span", "summarize", "trace"]
 
 KEEP = 64  # requests the deque holds
 OUTSIDE = "(no span)"  # where idle_by_span puts a gap that no span was open for
@@ -124,6 +126,31 @@ def reset_counts(names: Optional[Iterable[str]] = None) -> None:
         for name in list(_COUNTS) if names is None else names:
             _COUNTS.pop(name, None)
             _BY_SHAPE.pop(name, None)
+
+
+def snapshot() -> Dict[tuple, int]:
+    """Every host count, keyed ``(name, None)`` for a counter's total and
+    ``(name, shape)`` for its count of one shape (``counts_since``)."""
+    with _LOCK:
+        out = {(k, None): v for k, v in _COUNTS.items()}
+        out.update(((k, s), v) for k, by in _BY_SHAPE.items() for s, v in by.items())
+    return out
+
+
+def counts_since(before: Dict[tuple, int]) -> Dict[tuple, int]:
+    """The host counts made since ``before = snapshot()``, keyed as it is;
+    ``add_counts`` adds them again (work whose launches are replayed)."""
+    return {k: v - before.get(k, 0) for k, v in snapshot().items() if v != before.get(k, 0)}
+
+
+def add_counts(delta: Dict[tuple, int]) -> None:
+    """Add ``counts_since``'s counts to the counters, totals and shapes."""
+    with _LOCK:
+        for (name, shape), n in delta.items():
+            if shape is None:
+                _COUNTS[name] += n
+            else:
+                _BY_SHAPE[name][shape] += n
 
 
 # --------------------------------------------------------------------- spans
