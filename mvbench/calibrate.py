@@ -4,7 +4,8 @@
         [--control-seeds 7,8,9] [--out <file.json>]
 
 For each seed of ``--seeds``, the program as the cell runs it; for each of
-``--control-seeds``, the control: the reference computed in fp8 (one
+``--control-seeds``, the control that the configuration's family gives
+(``control``; for the VideoMV families the reference computed in fp8, one
 precision below the configuration's bf16) put in the program's place. Each
 is a short window at the cell's own load (the requests the check samples),
 then the check, all in this process. Prints one JSON line per seed and
@@ -32,8 +33,6 @@ def main(argv=None, allow_cpu: bool = False) -> int:
     import torch
 
     from . import weights
-    from .reference.lowp import fp8_models, program_facing
-    from .reference.serving import ServeReference
 
     bench = load_json(ROOT, "BENCHMARK.json")
     cell, config, mix, limits, _, _ = cell_spec(bench, args.workload)
@@ -44,17 +43,13 @@ def main(argv=None, allow_cpu: bool = False) -> int:
     family = importlib.import_module(f"mvbench.families.{config['family']}")
     driver = importlib.import_module(f"mvbench.{mix['kind']}")
     with torch.device("meta"):
-        shapes = {n: [(k, t.shape) for k, t in m.state_dict().items()]
-                  for n, m in family.Program(config, "meta").pipe.models.items()}
+        shapes = family.Program(config, mix, "meta").shapes()
     rows = []
     runs = [(int(s), False) for s in args.seeds.split(",") if s] + \
         [(int(s), True) for s in args.control_seeds.split(",") if s]
     for seed, control in runs:
         make_weights = weights.maker(seed, device, config)
-        swap = None
-        if control:
-            ref = ServeReference(config, family.I2V, make_weights(shapes), device)
-            swap = program_facing(fp8_models(ref.m))
+        swap = family.control(config, make_weights(shapes), device) if control else None
         t0 = time.time()
         res = driver.run(cell, config, mix, os.path.join(BENCH_DIR, "traffic"), family, seed,
                          0.0, False, device, time.time(), make_weights, swap_models=swap)

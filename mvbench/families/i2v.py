@@ -4,14 +4,19 @@ benchmark's seeded weights loaded through ``load_state_dicts``."""
 
 from __future__ import annotations
 
-from . import t2v
+from typing import Dict
 
-I2V = True
-ENCODE_METHODS = ("encode_text", "encode_image_clip", "encode_local_latent")
-COND_KWARGS = {"y": "y", "image": "image", "local": "local_image"}
+from ..reference import counting
+from . import t2v, videomv
+
+Watch = videomv.Watch
 
 
 class Program(t2v.Program):
+    I2V = True
+    ENCODE_METHODS = ("encode_text", "encode_image_clip", "encode_local_latent")
+    COND_KWARGS = {"y": "y", "image": "image", "local": "local_image"}
+
     @staticmethod
     def _pipeline_class():
         from videomv_tpu_torch.inference.i2v import I2VPipeline
@@ -24,6 +29,14 @@ class Program(t2v.Program):
 
         return [(i2v, "make_refine_fn")]
 
-    def request(self, item: dict, seed: int, refine: bool) -> dict:
+    def request(self, item: dict) -> dict:
         return self.pipe.generate_from_image(item["image"], steps=self.steps,
-                                             use_gs_refine=refine, seed=seed)
+                                             use_gs_refine=self.refine, seed=item["seed"])
+
+
+def work(config: dict, mix: dict) -> Dict[str, object]:
+    return counting.work(config, Program.I2V, mix)
+
+
+def control(config: dict, state_dicts, device) -> dict:
+    return videomv.control(config, Program.I2V, state_dicts, device)

@@ -5,11 +5,30 @@
 from the root of a checkout. ``BENCHMARK.json`` names the cell; the harness
 finds everything else by name: the configuration's file, the traffic mix
 ``mvbench/traffic/<traffic>.json``, its driver ``mvbench/<kind>.py``, the
-configuration's program ``mvbench/families/<family>.py``, the limits of the
+configuration's family ``mvbench/families/<family>.py``, the limits of the
 cell's check ``mvbench/limits/<cell>.json`` and each per-layer metric's
 reader ``mvbench/metrics/<metric>.py``. The last line of standard output is
 the result, one JSON object; the numbers the check compared, each beside its
 limit, end standard error and the result.
+
+Of the configuration this file reads only ``family``. The family module
+decides the rest: the program and how it serves a request, what the
+benchmark records of it, the check against the plain reference, and the
+work of one unit, ``work(config, mix)`` → ``{"flops", "calls"}``, which a
+traced run hands to the per-layer readers as ``r["work"]``. A serving
+family provides what ``mvbench/serve.py``'s docstring lists. A mix of
+another kind (a training step) brings its driver ``mvbench/<kind>.py``,
+whose ``run`` returns the same fields as ``serve.run``.
+
+A new cell is added as files and appended entries only, with no file
+edited: its configuration under ``configs/``, its mix under ``traffic/``
+(unless it reuses one), its limits under ``limits/``, a reader under
+``metrics/`` for each new per-layer metric, its reference under
+``reference/`` and its family module (unless its family exists); then an
+entry appended to ``configs``, ``workloads`` and ``per_layer`` of
+``BENCHMARK.json``, and its name appended to the ``workloads`` list of each
+end-to-end metric and per-layer metric it reports (``request_s`` for a
+serving cell).
 
 It needs as many CUDA devices as the cell asks for, and exits with an error
 and no result without them. After the window it checks that no module of
@@ -134,12 +153,9 @@ def main(argv: Optional[list] = None, allow_cpu: bool = False) -> int:
         for m in e2e:
             result["metrics"][m["name"]] = {"value": float(res[m["name"]]), "unit": m["unit"]}
     else:
-        from .reference import counting
-
         prof = res["profile"]
         dev["busy_s"], dev["window_s"] = float(prof["busy_s"]), float(prof["window_s"])
-        r = dict(res["readings"], profile=prof, cell=args.workload,
-                 work=counting.work(config, family.I2V, mix))
+        r = dict(res["readings"], profile=prof, cell=args.workload, work=family.work(config, mix))
         for m in per_layer:
             value = load_reader(m["name"])(r)
             if value is not None:

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+from typing import Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -72,21 +73,26 @@ def make_copy(dst: str) -> str:
 BOOT = """
 import json, sys
 sys.path.insert(0, {root!r}); sys.path.append({repo!r})
-cfg = json.load(open({cfg!r}))
-from mvbench.tests.cpu_run import patch_port
-patch_port(cfg["models"])
+{patch}
 {faults}
 from mvbench.run import main
 sys.exit(main({argv!r}, allow_cpu=True))
 """
+PATCH = """
+cfg = json.load(open({cfg!r}))
+from mvbench.tests.cpu_run import patch_port
+patch_port(cfg["models"])
+"""
 
 
-def run_harness(root: str, config_file: str, argv: list, faults: str = "",
+def run_harness(root: str, config_file: Optional[str], argv: list, faults: str = "",
                 timeout: float = 600) -> subprocess.CompletedProcess:
     """The harness of the copy at ``root`` in a fresh process on the CPU,
-    with the port built at the sizes of ``config_file`` and the Python in
-    ``faults`` run first (to break the timed path)."""
-    code = BOOT.format(root=root, repo=REPO, cfg=config_file, faults=faults, argv=argv)
+    with the port built at the sizes of ``config_file`` (``None``: a family
+    that does not run the port's pipelines) and the Python in ``faults`` run
+    first (to break the timed path)."""
+    patch = PATCH.format(cfg=config_file) if config_file is not None else ""
+    code = BOOT.format(root=root, repo=REPO, patch=patch, faults=faults, argv=argv)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="4")
     return subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
                           text=True, timeout=timeout)

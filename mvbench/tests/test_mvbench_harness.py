@@ -1,6 +1,7 @@
 """The harness is driven by data: a configuration, a traffic mix and a
 per-layer metric added as new files and entries to a copy of the benchmark
-run on the CPU with no file edited. Every name and unit of
+run on the CPU with no file edited, and so does a configuration of a model
+family that is not VideoMV's (``new_family/``). Every name and unit of
 ``BENCHMARK.json`` keeps to the allowed characters, every name finds its
 files, and each per-layer metric's ``moves`` is reported by every cell it
 lists. In a directory without the program the harness prints no result."""
@@ -8,6 +9,7 @@ lists. In a directory without the program the harness prints no result."""
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -96,6 +98,73 @@ def test_a_configuration_mix_and_metric_added_as_files_run_on_the_cpu(tmp_path):
     assert traced["metrics"]["test.requests.serve"]["value"] >= 2
     assert "refine.step_ms.serve" in traced["metrics"]
     assert {p: open(os.path.join(REPO, p), "rb").read() for p in before} == before
+
+
+NEW_FAMILY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "new_family")
+# one request of the tiny Euler family: 4 steps of its denoiser (an embedding
+# of 33 → 32 and convolutions 4 → 32 → 32 → 4, 3×3 at 16²), 2·MAC each
+TINY_EULER_MFLOP = 4 * 2 * (33 * 32 + 256 * 9 * (4 * 32 + 32 * 32 + 32 * 4)) / 1e6
+NEW_FAMILY_FAULTS = {
+    "none": "",
+    "step_returns_its_state": """
+import mvbench.families.tiny_euler as f
+f.euler_step = lambda x, d, s0, s1: x
+""",
+}
+
+
+def _add_new_family(root):
+    """The tiny Euler family's files copied in as new files under the
+    directories of the same names; its entries appended to ``BENCHMARK.json``."""
+    for sub in sorted(os.listdir(NEW_FAMILY)):
+        for name in sorted(os.listdir(os.path.join(NEW_FAMILY, sub))):
+            if name == "__pycache__":
+                continue
+            dst = os.path.join(root, "mvbench", sub, name)
+            assert not os.path.exists(dst), dst
+            shutil.copy(os.path.join(NEW_FAMILY, sub, name), dst)
+    path = os.path.join(root, "BENCHMARK.json")
+    with open(path) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "tiny_euler", "source": "https://arxiv.org/abs/2206.00364",
+                             "file": "mvbench/configs/tiny_euler.json", "reduced": [],
+                             "why": "a tiny denoiser under a 4-step Euler sampler (a test's)"})
+    bench["workloads"].append({"name": "tiny_euler.serve", "config": "tiny_euler",
+                               "traffic": "tiny_noise", "chips": 1,
+                               "why": "one client, closed loop, no refine (a test's cell)"})
+    next(m for m in bench["end_to_end"] if m["name"] == "request_s")["workloads"].append(
+        "tiny_euler.serve")
+    bench["per_layer"].append({"name": "tiny_euler.work_mflop.serve", "unit": "MFLOP",
+                               "better": "lower", "source": "program_counter",
+                               "layer": "models", "moves": "request_s",
+                               "workloads": ["tiny_euler.serve"]})
+    with open(path, "w") as f:
+        json.dump(bench, f, indent=1)
+
+
+@pytest.fixture(scope="module")
+def new_family_copy(tmp_path_factory):
+    root = cpu_run.make_copy(str(tmp_path_factory.mktemp("new_family")))
+    _add_new_family(root)
+    return root
+
+
+@pytest.mark.parametrize("fault", sorted(NEW_FAMILY_FAULTS))
+def test_a_new_model_family_added_as_files_runs_and_its_check_fails_a_fault(new_family_copy,
+                                                                           fault):
+    args = ["--workload", "tiny_euler.serve", "--seed", str(2 ** 33 + 11), "--seconds", "0.5"]
+    res = cpu_run.result_of(cpu_run.run_harness(new_family_copy, None, args + ["--trace", "0"],
+                                                faults=NEW_FAMILY_FAULTS[fault]))
+    if fault != "none":
+        assert res["correct"] is False, res["checks"]
+        return
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 2, res["checks"]
+    assert set(res["metrics"]) == {"request_s", "peak_mem_gib", "setup_s"}
+    assert set(res["checks"]) == {"start", "step", "missing"}
+    traced = cpu_run.result_of(cpu_run.run_harness(new_family_copy, None,
+                                                   args + ["--trace", "1"]))
+    assert traced["correct"]
+    assert traced["metrics"]["tiny_euler.work_mflop.serve"]["value"] == TINY_EULER_MFLOP
 
 
 def test_without_the_program_the_harness_prints_no_result(tmp_path):
