@@ -233,6 +233,17 @@ ATTN_SHAPES = {(48, 1024, 5, 64): 235, (48, 256, 10, 64): 235,
                (1, 1024, 16, 64): 15, (1, 256, 16, 64): 18}
 FFN_SHAPES = {(49152, 320, 1280): 470, (12288, 640, 2560): 470, (49152, 512, 2048): 47,
               (24576, 320, 1280): 30, (6144, 640, 2560): 30, (24576, 512, 2048): 3}
+# SV3D (sv3d_p, videomv_tpu_torch/configs/sv3d_p_infer.yaml): the kernels'
+# shapes in its CFG forward of 42 rows (21 frames) at 72², 36² and 18²
+# latents, timed and checked here; no phase serves an SV3D request, so its
+# launches are counted by the benchmark's run of the cell, not here. The
+# spatial self-attention of each level (the 9² middle block's 81 tokens stay
+# plain), S % 128 != 0 at every one (the wgmma kernel's masked last tile),
+# and the GEGLU FFNs at 72² and 36² (the 18² level is C = 1280).
+SV3D_ATTN_SHAPES = ((42, 5184, 5, 64), (42, 1296, 10, 64), (42, 324, 20, 64))
+SV3D_FFN_SHAPES = ((217728, 320, 1280), (54432, 640, 2560))
+# rows of a plain-twin chunk at SV3D's shapes ([6, 5, 5184, 5184] fp32 logits: 3.2 GB)
+SV3D_TWIN_ROWS = 6
 # a plain request's launches by shape: the 48-row shapes only
 PLAIN_BY_SHAPE = {"flash_attention": {(48, 1024, 5, 64): 250, (48, 256, 10, 64): 250},
                   "geglu_ffn": {(49152, 320, 1280): 500, (12288, 640, 2560): 500,
@@ -618,7 +629,8 @@ def phase_build():
         say("build", f"{name}: {(used or ['?'])[0].split(':', 1)[-1].strip()}; {spill}")
         if "0 bytes spill stores, 0 bytes spill loads" not in spill:
             bad.append(f"{name} spills: {spill}")
-    want = ({"flash_attn_wgmma_kernel"} | {f"geglu_ffn_wgmma_kernel<{c}>" for c in ff.WGMMA_WIDTHS}
+    want = ({"flash_attn_wgmma_kernel", "flash_attn_wgmma_kernel<tail>"}
+            | {f"geglu_ffn_wgmma_kernel<{c}>" for c in ff.WGMMA_WIDTHS}
             | set(SPATIAL_WGMMA_KERNELS) | set(SPLAT_FWD_KERNELS) | set(SPLAT_BWD_KERNELS))
     if set(found) != want:
         bad.append(f"expected the kernels {sorted(want)} in the log, found {sorted(found)}")
@@ -653,6 +665,9 @@ def _kernel_name(line):
     m = re.search(r"(splat_composite_bwd(?:_culled)?_kernel)", line)
     if m:
         return m.group(1)
+    m = re.search(r"(flash_attn_wgmma_kernel)ILb([01])E", line)
+    if m:  # the ragged-tail instance apart from the other
+        return m.group(1) + ("<tail>" if m.group(2) == "1" else "")
     m = re.search(r"([a-z_]+_wgmma_kernel)(?:ILi(\d+)E)?", line)
     if not m:
         return None
@@ -1432,6 +1447,64 @@ def phase_kernels(torch, only=None):
             fail("kernels", f"flash_attention {shape} outside its error bound")
         del q, k, v, kern, twin, ref32, qt, kt_, vt
 
+    # SV3D's shapes, S % 128 != 0: the wgmma kernel's masked last tile (the
+    # mma.sync kernel takes only 5,184, S % 64 == 0, and is timed there in
+    # turns); the plain twin and fp32 in chunks of SV3D_TWIN_ROWS rows (whole,
+    # their [B, H, S, S] logits would take 45 GB at 5,184 tokens), the twin's
+    # time the sum of its chunks'
+    sv3d_s = 0.0  # seconds of the SV3D rows, attention and FFN
+    for shape in (SV3D_ATTN_SHAPES if chosen("flash_attention") else ()):
+        row_t0 = time.time()
+        q, k, v = (randn(*shape) for _ in range(3))
+        ops.reset_launch_counts()
+        kern = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if ops.launch_counts_by_shape()["flash_attention"] != {shape: 1}:
+            fail("kernels", f"attention {shape}: launch counter did not move")
+        if not torch.equal(flash_attention(q, k, v), kern):
+            fail("kernels", f"attention {shape}: two launches differ")
+        k_err = t_err = kt = plain_ms = 0.0
+        for r0 in range(0, shape[0], SV3D_TWIN_ROWS):
+            sl = slice(r0, r0 + SV3D_TWIN_ROWS)
+            qc, kc, vc = q[sl], k[sl], v[sl]
+            twin = attention_reference(qc, kc, vc)
+            ref32 = attention_reference(qc.float(), kc.float(), vc.float())
+            e = errs(kern[sl], twin, ref32)
+            k_err, t_err, kt = max(k_err, e[0]), max(t_err, e[1]), max(kt, e[2])
+            del twin, ref32
+            plain_ms += _time_one(torch, lambda: attention_reference(qc, kc, vc), 3)
+        ms = _time_one(torch, lambda: flash_attention(q, k, v))
+        ok = k_err <= 2 * t_err + KERNEL_EPS and kt <= KERNEL_VS_TWIN_TOL
+        served = fa.attention_variant(*shape)
+        other = fa.VARIANT_MMA + fa.VARIANT_WGMMA - served
+        other_ms = served_ms = None
+        if fa.variant_takes(other, shape[1], shape[3]):
+            other_ms, served_ms = _time_turns(
+                torch, lambda: fa._launch(q, k, v, variant=served),
+                lambda: fa._launch(q, k, v, variant=other))
+        qt, kt_, vt = (a.transpose(1, 2) for a in (q, k, v))
+        library_ms = _time_one(torch, lambda: F.scaled_dot_product_attention(qt, kt_, vt))
+        bound_ms, bound_by = _attn_bound(shape)
+        results["flash_attention"].append(dict(
+            shape=list(shape), calls_per_request=0, calls_per_train_step=0, err_vs_fp32=k_err, twin_err_vs_fp32=t_err, max_abs_err=kt,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, variant=fa.VARIANT_NAMES[served],
+            share_of_bound=bound_ms / ms, other_variant_ms=other_ms,
+            served_variant_ms_in_turns=served_ms))
+        turns = (f"in turns with the mma.sync kernel: serving {served_ms:.4f} ms, other "
+                 f"{other_ms:.4f} ms" if other_ms is not None else "the mma.sync kernel does "
+                 "not take it")
+        say("kernels", f"flash_attention {list(shape)} SV3D ({fa.VARIANT_NAMES[served]} kernel, "
+            f"ragged tail, {100 * bound_ms / ms:.1f}% of its bound): |k-fp32| {k_err:.3e} "
+            f"|twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} "
+            f"ms (chunks of {SV3D_TWIN_ROWS} rows) bound {bound_ms:.4f} ms ({bound_by}) library "
+            f"call {library_ms:.4f} ms; {turns} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("kernels", f"flash_attention {shape} outside its error bound")
+        del q, k, v, kern, qt, kt_, vt
+        torch.cuda.empty_cache()
+        sv3d_s += time.time() - row_t0
+
     # kernel 1's backward at every trained shape: the backward kernel on the
     # forward kernel's o and lse against its twin fed the same tensors and
     # against autograd of the fp32 plain attention (each gradient relative to
@@ -1506,8 +1579,10 @@ def phase_kernels(torch, only=None):
         del q, k, v, go, o, lse, kern, qt, kt_, vt, lib_out, got_
         torch.cuda.empty_cache()
 
-    ffn_shapes = dict.fromkeys([*FFN_SHAPES, *BATCHED_REFINED_BY_SHAPE["geglu_ffn"]])
+    ffn_shapes = dict.fromkeys([*FFN_SHAPES, *BATCHED_REFINED_BY_SHAPE["geglu_ffn"],
+                                *SV3D_FFN_SHAPES])
     for t, c, inner in (ffn_shapes if chosen("geglu_ffn") else ()):
+        row_t0 = time.time()
         x = randn(t, c)
         w1 = randn(2 * inner, c, scale=c ** -0.5)
         w2 = randn(c, inner, scale=inner ** -0.5)
@@ -1563,6 +1638,10 @@ def phase_kernels(torch, only=None):
                 fail("kernels", "geglu_ffn backward differs from its twin's")
             del args, go, got, want
         del x, w1, w2, b1, b2, kern, twin, ref32
+        if (t, c, inner) in SV3D_FFN_SHAPES:
+            sv3d_s += time.time() - row_t0
+    if chosen("flash_attention") or chosen("geglu_ffn"):
+        say("kernels", f"the SV3D rows (attention and FFN) took {sv3d_s:.1f}s")
     if chosen("splat_composite"):
         results["splat_composite"], results["splat_composite_bwd"] = _splat_kernel_checks(
             torch, dev)
@@ -1626,7 +1705,11 @@ def main(argv=None):
     if "build" in phases or "kernels" in phases:
         phase_build()
     only = [s for s in args.kernels.split(",") if s] or None
-    kernel_results = phase_kernels(torch, only) if "kernels" in phases else {}
+    kernel_results = {}
+    if "kernels" in phases:
+        t0 = time.time()
+        kernel_results = phase_kernels(torch, only)
+        say("kernels", f"phase {time.time() - t0:.1f}s")
     # kernel -> launches of one plain request, one refined request, one train
     # step: each counted with the counters reset just before that path ran
     train_run = f"train run of {TRAIN_STEPS} steps"

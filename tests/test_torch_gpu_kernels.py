@@ -88,7 +88,7 @@ def test_flash_attention_tile_edges(cuda, s, d):
     twin = attention_reference(q, k, v)
     ref32 = attention_reference(q.float(), k.float(), v.float())
     assert attention_variant(*shape) == VARIANT_MMA
-    variants = [VARIANT_MMA] + ([VARIANT_WGMMA] if d == 64 and s % 128 == 0 else [])
+    variants = [VARIANT_MMA] + ([VARIANT_WGMMA] if d == 64 and s >= 128 else [])
     for variant in variants:
         ops.reset_launch_counts()
         kern = fa._launch(q, k, v, variant=variant)
@@ -101,6 +101,54 @@ def test_flash_attention_tile_edges(cuda, s, d):
         with pytest.raises(RuntimeError):
             fa._launch(q, k, v, variant=VARIANT_WGMMA)
     assert torch.equal(flash_attention(q, k, v), fa._launch(q, k, v, variant=VARIANT_MMA))
+
+
+def _chunked_errors(kern, q, k, v, rows: int = 6):
+    """The kernel's and the plain twin's largest errors against fp32 over
+    batch chunks of ``rows`` (the plain paths
+    hold [B, H, S, S] fp32 logits: 22 GiB at SV3D's [42, 5184, 5, 64])."""
+    k_err = t_err = 0.0
+    for i in range(0, q.shape[0], rows):
+        sl = slice(i, i + rows)
+        twin = attention_reference(q[sl], k[sl], v[sl]).float()
+        ref32 = attention_reference(q[sl].float(), k[sl].float(), v[sl].float())
+        k_err = max(k_err, (kern[sl].float() - ref32).abs().max().item())
+        t_err = max(t_err, (twin - ref32).abs().max().item())
+    return k_err, t_err
+
+
+# S % 128 != 0 at head_dim 64: the wgmma kernel's masked last tile. SV3D's
+# three levels (72², 36², 18² latents of 21 frames, CFG rows), which the
+# dispatch sends to it, and two small ragged shapes launched on it directly,
+# one with a 64-key tail (S = 320, a grid the dispatch leaves to the mma.sync
+# kernel) and one with 104 (S = 1000).
+@pytest.mark.parametrize("shape", [(42, 5184, 5, 64), (42, 1296, 10, 64), (42, 324, 20, 64),
+                                   (4, 320, 5, 64), (2, 1000, 8, 64)])
+def test_flash_attention_ragged_tail(cuda, shape):
+    b, s, h, d = shape
+    if b == 42:
+        assert attention_variant(*shape) == VARIANT_WGMMA
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v = (_randn(gen, cuda, *shape) for _ in range(3))
+    ops.reset_launch_counts()
+    kern = fa._launch(q, k, v, variant=VARIANT_WGMMA)
+    torch.cuda.synchronize()
+    assert ops.launch_counts_by_shape()["flash_attention"] == {shape: 1}
+    assert torch.isfinite(kern).all()
+    # (keys past S that took a share of the softmax would dilute every row)
+    k_err, t_err = _chunked_errors(kern, q, k, v)
+    assert k_err <= 2 * t_err + EPS, (k_err, t_err)
+    # rows >= S are never stored: the same launch into a buffer with a guard
+    # band after the last batch's rows leaves the band as it was
+    n = b * s * h * d
+    buf = torch.full((n + 128 * h * d,), 7.0, dtype=torch.bfloat16, device=cuda)
+    err = fa._build.load_library().vmv_flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), None, b, s, h, d,
+        float(d ** -0.5), VARIANT_WGMMA, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(buf[:n].view(shape), kern)
+    assert (buf[n:] == 7.0).all()
 
 
 @pytest.mark.parametrize("shape", [(32, 256, 3, 64), (1, 192, 2, 64)])
@@ -125,7 +173,7 @@ def test_flash_attention_rejects_what_it_cannot_take(cuda):
         flash_attention(q.float(), q.float(), q.float())  # fp32
     with pytest.raises(ValueError):
         flash_attention(q[:, :100].contiguous(), q[:, :100].contiguous(),
-                        q[:, :100].contiguous())  # S % 64 != 0
+                        q[:, :100].contiguous())  # S < 128 (and S % 64 != 0)
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :64].contiguous(), q[:, :64].contiguous())  # cross
     with pytest.raises(ValueError):
@@ -135,8 +183,10 @@ def test_flash_attention_rejects_what_it_cannot_take(cuda):
         flash_attention(g, g, g)  # head_dim 32
 
 
+# (the last two: SV3D's row counts at its 72² and 36² levels, 21 frames × CFG)
 @pytest.mark.parametrize("t,c,inner", [(4100, 64, 256), (333, 640, 2560), (4096, 1024, 512),
-                                       (97, 320, 1280)])
+                                       (97, 320, 1280), (217728, 320, 1280),
+                                       (54432, 640, 2560)])
 def test_geglu_ffn_matches_fp32(cuda, t, c, inner):
     gen = torch.Generator(device=cuda).manual_seed(t + c)
     x = _randn(gen, cuda, t, c)

@@ -30,7 +30,8 @@ IMPORTS = (
     "videomv_tpu_torch.data.recenter", "videomv_tpu_torch.parallel.mesh",
     "videomv_tpu_torch.parallel.collectives", "videomv_tpu_torch.parallel.infer",
     "videomv_tpu_torch.parallel.tp", "videomv_tpu_torch.parallel.dryrun",
-    "videomv_tpu_torch.utils.profiling",
+    "videomv_tpu_torch.utils.profiling", "videomv_tpu_torch.models.unet_sv3d",
+    "videomv_tpu_torch.diffusion.edm", "videomv_tpu_torch.inference.sv3d",
 )
 
 

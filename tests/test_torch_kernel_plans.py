@@ -51,6 +51,7 @@ def test_served_attention_shapes_take_the_wgmma_kernel(shape):
     ((1, 128, 1, 64), tfa.VARIANT_MMA),    # one block: too small a grid
     ((64, 128, 1, 64), tfa.VARIANT_WGMMA),  # 64 blocks of one tile each
     ((63, 128, 1, 64), tfa.VARIANT_MMA),
+    ((64, 64, 1, 64), tfa.VARIANT_MMA),    # 64 blocks, but shorter than a 128-key tile
     ((1, 1024, 16, 64), tfa.VARIANT_WGMMA),  # 128 blocks
     ((2, 512, 4, 128), tfa.VARIANT_MMA),   # head_dim 128
     ((1, 1024, 1, 128), tfa.VARIANT_MMA),

@@ -14,8 +14,8 @@
 // cores, so whatever of it is not hidden under another warpgroup's wgmma is
 // lost.
 //
-// head_dim 64 with S % 128 == 0 (variant 1) runs the kernel designed for this
-// card, flash_attn_wgmma_kernel:
+// head_dim 64 (variant 1) runs the kernel designed for this card,
+// flash_attn_wgmma_kernel:
 //   * a block owns 128 query rows of one (batch, head): two consumer
 //     warpgroups of 64 rows each, and a third warpgroup whose first thread is
 //     the producer. K/V of a head are read S / 128 times instead of S / 64.
@@ -35,6 +35,11 @@
 //     barriers), so one's softmax runs under the other's wgmmas. O is divided
 //     by the row sum once at the end and leaves through the block's Q tile as
 //     whole 128-byte rows.
+//   * S % 128 != 0 (SV3D's 5,184, 1,296 and 324 tokens) takes the kernel's
+//     kTail instance: TMA zero-fills the boxes past S, the last K/V tile's
+//     logits of keys >= S are set to -inf before the online softmax, and rows
+//     >= S are neither stored nor given an lse. Only the last tile pays for
+//     the mask; S % 128 == 0 runs the instance without it.
 // Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py: 0.20 ms at
 // [48,1024,5,64] (31 % of the bound; the first port's kernel 0.29 ms, one
 // scaled_dot_product_attention call 0.156 ms); the table in PERF.md has every
@@ -42,9 +47,9 @@
 // compiled out the kernel still takes 0.125 ms: the waits, barriers and the
 // rest of the softmax per tile weigh more than the products.
 //
-// Every other shape the wrapper accepts (head_dim 128, S % 128 == 64, and
-// grids of fewer than 64 blocks, which are launch-bound; variant 0) keeps the
-// first port's kernel, flash_attn_fwd_kernel:
+// Head_dim 128 and grids of fewer than 64 blocks, which are launch-bound,
+// when S % 64 == 0 (variant 0) keep the first port's kernel,
+// flash_attn_fwd_kernel:
 //   * one CTA (4 warps, 128 threads) per (batch·head, 64 query rows);
 //   * K/V tiles of 64 keys staged in shared memory with cp.async, double
 //     buffered so the next tile loads while this one is multiplied;
@@ -60,8 +65,8 @@
 // (flash_attention_bwd.cu) recompute the probabilities from; with a null
 // pointer (inference) nothing is written.
 // Requirements (checked by the Python wrapper): bf16, contiguous [B,S,H,D],
-// 16-byte aligned, q/k/v of one shape (self-attention), S % 64 == 0, D in
-// {64, 128}.
+// 16-byte aligned, q/k/v of one shape (self-attention), D in {64, 128}; S %
+// 64 == 0 except for the wgmma kernel at D = 64.
 
 #include "attention_tile.cuh"
 #include "hopper_utils.cuh"
@@ -87,7 +92,9 @@ constexpr int kWgThreads = 128 * (kWgConsumers + 1);
 constexpr int kWgTileBytes = 128 * kSwizzleRowBytes;  // [128 rows x 64] bf16
 constexpr int kWgSmemBytes = 1024 + kWgTileBytes * (1 + 2 * kWgStages) + 1024;
 
-// head_dim 64: one swizzle row per token
+// head_dim 64: one swizzle row per token. kTail: S % 128 != 0 (the last
+// tile's keys and rows past S are masked)
+template <bool kTail>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -107,7 +114,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = blockIdx.x * kWgQRows;
-  const int n_tiles = S / kWgKeys;
+  const int n_tiles = (S + kWgKeys - 1) / kWgKeys;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -187,6 +194,18 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       wgmma_wait<0>();  // this tile's logits, and the tile before's PV
       if (jt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      if (kTail && jt == n_tiles - 1) {
+        // keys past S (zeros from TMA) take no share of the softmax; the
+        // first tile always holds real keys (S >= 128), so no row is empty
+        const int valid = S - jt * kWgKeys - q2;
+#pragma unroll
+        for (int i = 0; i < kWgKeys / 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (i * 8 + (c & 1) >= valid) sc[4 * i + c] = -INFINITY;
+          }
+        }
+      }
 
       // online softmax: the max of the unscaled logits, exponent in base 2
       float mx[2] = {m_run[0], m_run[1]};
@@ -264,18 +283,21 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     __syncwarp();
     const int64_t tok_stride = int64_t(H) * D;
     bf16* og = o + (int64_t(b) * S + q0 + wg * 64) * tok_stride + int64_t(h) * D;
+    const int rows_left = S - q0 - wg * 64;  // of this warpgroup's 64 rows, those < S
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // a warp stores its own 16 rows, 4 at a time
       const int r = warp * 16 + i * 4 + (lane >> 3);
       const int chunk = lane & 7;
       const uint4 val =
           *reinterpret_cast<const uint4*>(my_q + r * kSwizzleRowBytes + ((chunk ^ (r & 7)) << 4));
-      *reinterpret_cast<uint4*>(og + int64_t(r) * tok_stride + chunk * 8) = val;
+      if (!kTail || r < rows_left) {
+        *reinterpret_cast<uint4*>(og + int64_t(r) * tok_stride + chunk * 8) = val;
+      }
     }
     if (lse != nullptr && (lane & 3) == 0) {
       float* lse_row = lse + int64_t(bh) * S + q0 + wg * 64 + row;
-      lse_row[0] = row_lse(m_run[0], l_run[0], scale_log2);
-      lse_row[8] = row_lse(m_run[1], l_run[1], scale_log2);
+      if (!kTail || row < rows_left) lse_row[0] = row_lse(m_run[0], l_run[0], scale_log2);
+      if (!kTail || row + 8 < rows_left) lse_row[8] = row_lse(m_run[1], l_run[1], scale_log2);
     }
   }
 }
@@ -295,12 +317,13 @@ cudaError_t launch_flash_attn_wgmma(const void* q, const void* k, const void* v,
     const cudaError_t err = make_tensor_map_bf16(&maps[i], bases[i], 4, dims, strides, box);
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kWgSmemBytes);
+  const bool tail = S % kWgKeys != 0;
+  auto kernel = tail ? flash_attn_wgmma_kernel<true> : flash_attn_wgmma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(S / kWgQRows, B * H);
-  flash_attn_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
+  const dim3 grid((S + kWgQRows - 1) / kWgQRows, B * H);
+  kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, S, H, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -430,7 +453,7 @@ cudaError_t launch_flash_attn(const void* q, const void* k, const void* v, void*
 // (the backward's input: each query row's log-sum-exp of its scaled logits,
 // natural log; inference passes null and pays nothing). `variant` names the kernel
 // (ops/flash_attention.py::attention_variant chooses it from the shape):
-// 1 = wgmma (D == 64, S % 128 == 0), 0 = mma.sync (D in {64, 128}, S % 64 == 0).
+// 1 = wgmma (D == 64, S >= 128), 0 = mma.sync (D in {64, 128}, S % 64 == 0).
 // Returns a cudaError_t value; a variant that does not take the shape is
 // cudaErrorInvalidValue.
 extern "C" int vmv_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
@@ -438,12 +461,12 @@ extern "C" int vmv_flash_attn_fwd(const void* q, const void* k, const void* v, v
                                   int variant, void* stream) {
   float* lse_f = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || S <= 0 || S % vmv::kBlockM != 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || S <= 0) return int(cudaErrorInvalidValue);
   if (variant == 1) {
-    if (D != 64 || S % vmv::kWgKeys != 0) return int(cudaErrorInvalidValue);
+    if (D != 64 || S < vmv::kWgKeys) return int(cudaErrorInvalidValue);
     return int(vmv::launch_flash_attn_wgmma(q, k, v, o, lse_f, B, S, H, scale, st));
   }
-  if (variant != 0) return int(cudaErrorInvalidValue);
+  if (variant != 0 || S % vmv::kBlockM != 0) return int(cudaErrorInvalidValue);
   if (D == 64) return int(vmv::launch_flash_attn<64>(q, k, v, o, lse_f, B, S, H, scale, st));
   if (D == 128) return int(vmv::launch_flash_attn<128>(q, k, v, o, lse_f, B, S, H, scale, st));
   return int(cudaErrorInvalidValue);

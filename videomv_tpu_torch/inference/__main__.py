@@ -22,7 +22,10 @@ ships) also the Gaussian-splat refined sample (``_gs``), and with
 ``.npy``, whichever writer the machine has. With ``TASK_TYPE:
 inference_i2vgen_entrance`` the items of ``test_list_path`` are image paths
 (an empty list is an error), the outputs are named after the image file, and
-no ``.ply`` is written. ``VIDEOMV_ENABLE_FUSED_SPATIAL=1`` in the environment
+no ``.ply`` is written. With ``TASK_TYPE: inference_sv3d_entrance``
+(``videomv_tpu_torch/configs/sv3d_p_infer.yaml``) each image path is served
+by Stable Video 3D (``inference/sv3d.py``): ``num_frames`` orbit views at the
+config's resolution, no refine. ``VIDEOMV_ENABLE_FUSED_SPATIAL=1`` in the environment
 runs the UNet's 32² spatial transformers as one fused CUDA kernel each.
 
 ``--trace DIR`` traces every request (``utils.profiling``): it logs one line
@@ -70,6 +73,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     from ..utils.video_io import save_multiview_video
     from .i2v import I2VPipeline
     from .pipeline import T2VPipeline
+    from .sv3d import SV3DPipeline
 
     device = local_device(str(resolve_device(args.device)))
     rank = init_distributed(device)
@@ -79,12 +83,15 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     cfg.debug = args.debug
 
     task = cfg.get("TASK_TYPE", "inference_text2video_entrance")
-    is_i2v = task == "inference_i2vgen_entrance"
-    if task not in ("inference_text2video_entrance", "inference_i2vgen_entrance"):
+    pipes = {"inference_text2video_entrance": T2VPipeline,
+             "inference_i2vgen_entrance": I2VPipeline, "inference_sv3d_entrance": SV3DPipeline}
+    if task not in pipes:
         raise SystemExit(f"unknown TASK_TYPE {task}")
+    is_sv3d = task == "inference_sv3d_entrance"
+    is_i2v = task == "inference_i2vgen_entrance" or is_sv3d
 
     logging.info("torch %s device %s", torch.__version__, device)
-    pipe_cls = I2VPipeline if is_i2v else T2VPipeline
+    pipe_cls = pipes[task]
     pipe = pipe_cls(cfg, device=device, seed=int(cfg.get("seed", 0)))
     pipe.init_params()
 
@@ -102,7 +109,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
 
     log_dir = cfg.get("log_dir", "workspace/visualization")
     os.makedirs(log_dir, exist_ok=True)
-    use_refine = bool(cfg.get("UNet", {}).get("use_lgm_refine", False))
+    use_refine = not is_sv3d and bool(cfg.get("UNet", {}).get("use_lgm_refine", False))
     rounds = 1 if args.debug else int(cfg.get("round", 1))
     steps = int(cfg.get("ddim_timesteps", 50))
     fp = bool(cfg.get("frame_parallel", False))
@@ -116,7 +123,9 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
         t0 = time.time()
         if args.trace and device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        if is_i2v:
+        if is_sv3d:
+            out = pipe.generate_from_image(item, seed=seed)
+        elif is_i2v:
             out = pipe.generate_from_image(item, steps=steps, use_gs_refine=refine, seed=seed,
                                            frame_parallel=fp)
         else:

@@ -49,6 +49,7 @@ __all__ = [
     "FeedForward",
     "RelativePositionBias",
     "ResBlock",
+    "SpatialResBlock",
     "SpatialTransformer",
     "TemporalAttentionBlock",
     "TemporalAttentionMultiBlock",
@@ -496,14 +497,16 @@ class TemporalConvBlockV2(nn.Module):
         return shard.tokens_to_frames((h + out)[..., 0], x.shape[-2:])
 
 
-class ResBlock(nn.Module):
-    """GN/SiLU/conv residual block + timestep-embedding add + temporal conv
-    (util.py:610-730; GroupNorm eps 1e-5); ``use_image_dataset`` turns the
-    temporal conv into the identity. ``forward(x [B·F, C, H, W],
-    emb [B·F, E], frames)``."""
+class SpatialResBlock(nn.Module):
+    """GN/SiLU/conv residual block with the timestep-embedding add
+    (util.py:610-730 without its temporal conv; GroupNorm eps 1e-5): the
+    spatial half that ``ResBlock`` and SV3D's ``VideoResBlock`` share, under
+    the keys both checkpoints use (``in_layers``, ``emb_layers``,
+    ``out_layers``, ``skip_connection``). ``spatial(x [B·F, C, H, W],
+    emb [B·F, E])``."""
 
     def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
-                 out_channels: Optional[int] = None, use_image_dataset: bool = False):
+                 out_channels: Optional[int] = None):
         super().__init__()
         out_ch = out_channels or channels
         self.in_layers = nn.Sequential(nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
@@ -514,15 +517,29 @@ class ResBlock(nn.Module):
             zero_module(nn.Conv2d(out_ch, out_ch, 3, padding=1)))
         self.skip_connection = (nn.Identity() if out_ch == channels
                                 else nn.Conv2d(channels, out_ch, 1))
+
+    def spatial(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self.in_layers(x)
+        h = h + self.emb_layers(emb)[:, :, None, None].to(h.dtype)
+        h = self.out_layers(h)
+        return self.skip_connection(x) + h
+
+
+class ResBlock(SpatialResBlock):
+    """``SpatialResBlock`` + temporal conv (util.py:610-730);
+    ``use_image_dataset`` turns the temporal conv into the identity.
+    ``forward(x [B·F, C, H, W], emb [B·F, E], frames)``."""
+
+    def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
+                 out_channels: Optional[int] = None, use_image_dataset: bool = False):
+        super().__init__(channels, emb_channels, dropout, out_channels)
+        out_ch = out_channels or channels
         # [sic] spelling: the released checkpoint key (util.py:691)
         self.temopral_conv = TemporalConvBlockV2(out_ch, out_ch, dropout=0.1,
                                                  multiply_zero=use_image_dataset)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, frames: int) -> torch.Tensor:
-        h = self.in_layers(x)
-        h = h + self.emb_layers(emb)[:, :, None, None].to(h.dtype)
-        h = self.out_layers(h)
-        h = self.skip_connection(x) + h
+        h = self.spatial(x, emb)
         bf, c, hh, ww = h.shape
         ht = self.temopral_conv(h.reshape(bf // frames, frames, c, hh, ww).permute(0, 2, 1, 3, 4))
         return ht.permute(0, 2, 1, 3, 4).reshape(bf, c, hh, ww)

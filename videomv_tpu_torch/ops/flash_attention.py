@@ -4,8 +4,9 @@ plain PyTorch twin.
 Port of ``videomv_tpu/ops/flash_attention.py``. ``flash_attention(q, k, v)``
 takes ``[B, S, H, D]`` tensors (the JAX package's layout). On a CUDA tensor
 it launches the hand-written kernel, or raises if the kernel does not take
-the input (bf16 only, self-attention, S % 64 == 0, D in {64, 128}; the
-fp32 sampling mode therefore never reaches it). On a CPU tensor it runs
+the input (``kernel_refuses``: bf16 only, self-attention, D in {64, 128},
+S % 64 == 0 except at D = 64 outside grad; the fp32 sampling mode therefore
+never reaches it). On a CPU tensor it runs
 ``attention_reference``, the plain twin.
 
 The counter ``launch.flash_attention`` of ``utils.profiling`` counts kernel
@@ -37,21 +38,23 @@ from . import _build
 
 __all__ = ["VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA", "attention_backward_reference",
            "attention_lse_reference", "attention_reference", "attention_tensor_map",
-           "attention_variant", "flash_attention", "fp32_logits"]
+           "attention_variant", "flash_attention", "fp32_logits", "kernel_refuses",
+           "variant_takes"]
 
 # keys a tile of the plain twins' blockwise loop (the kernels' tile)
 TWIN_BLOCK = 64
 
 # The two hand-written kernels behind ``vmv_flash_attn_fwd``
 # (csrc/flash_attention.cu): the wgmma kernel (128 query rows a block, K/V
-# tiles of 128 keys staged by TMA) takes head_dim 64 and S % 128 == 0; the
-# mma.sync kernel (64 query rows a block) takes every shape the wrapper
-# accepts. The choice is by shape, made here and checked again by the C entry
-# point. A grid of fewer than WGMMA_MIN_BLOCKS blocks (the LGM's 16² calls:
-# 32) stays with the mma.sync kernel: it is launch-bound, twice as many
-# smaller blocks fill more of the card, and no tensor maps are encoded per
-# launch (timed in turns on an H100 the mma.sync kernel is 4-7 % faster there,
-# the wgmma kernel 1-9 % faster at 128 blocks and 1.4x at the UNet's shapes).
+# tiles of 128 keys staged by TMA) takes head_dim 64 and any S >= 128, S % 128
+# != 0 through its masked last tile; the mma.sync kernel (64 query rows a
+# block) takes head_dim 64 and 128 with S % 64 == 0. The choice is by shape,
+# made here and checked again by the C entry point. A grid of fewer than
+# WGMMA_MIN_BLOCKS blocks (the LGM's 16² calls: 32) stays with the mma.sync
+# kernel where it takes the shape: it is launch-bound, twice as many smaller
+# blocks fill more of the card, and no tensor maps are encoded per launch
+# (timed in turns on an H100 the mma.sync kernel is 4-7 % faster there, the
+# wgmma kernel 1-9 % faster at 128 blocks and 1.4x at the UNet's shapes).
 VARIANT_MMA, VARIANT_WGMMA = 0, 1
 VARIANT_NAMES = {VARIANT_MMA: "mma.sync", VARIANT_WGMMA: "wgmma"}
 
@@ -62,12 +65,35 @@ WGMMA_SMEM_BYTES = 1024 + 128 * 128 * (1 + 2 * WGMMA_STAGES) + 1024
 WGMMA_MIN_BLOCKS = 64
 
 
+def variant_takes(variant: int, s: int, d: int) -> bool:
+    """Whether kernel ``variant`` takes sequence ``s`` at head size ``d``
+    (the C entry point's rule)."""
+    if variant == VARIANT_WGMMA:
+        return d == 64 and s >= WGMMA_KEYS
+    return d in (64, 128) and s % TWIN_BLOCK == 0
+
+
 def attention_variant(b: int, s: int, h: int, d: int) -> int:
-    """Which kernel serves ``[b, s, h, d]``."""
-    if d != 64 or s % WGMMA_KEYS != 0:
-        return VARIANT_MMA
-    blocks = b * h * (s // WGMMA_Q_ROWS)
-    return VARIANT_WGMMA if blocks >= WGMMA_MIN_BLOCKS else VARIANT_MMA
+    """Which kernel serves ``[b, s, h, d]``: the wgmma kernel from a grid of
+    WGMMA_MIN_BLOCKS blocks up and the mma.sync kernel below it, each where
+    it takes the shape, and otherwise the other one."""
+    blocks = b * h * -(-s // WGMMA_Q_ROWS)
+    first = VARIANT_WGMMA if blocks >= WGMMA_MIN_BLOCKS else VARIANT_MMA
+    return first if variant_takes(first, s, d) else VARIANT_MMA + VARIANT_WGMMA - first
+
+
+def kernel_refuses(s: int, d: int, grad: bool = False) -> str:
+    """Why the kernels refuse ``[B, s, H, d]`` (empty if they take it): the
+    forward takes what one of the variants takes (``variant_takes``); under
+    grad the backward kernel (mma.sync, 64-key tiles) needs s % 64 == 0
+    too."""
+    if d not in (64, 128):
+        return f"head_dim {d} not in (64, 128)"
+    if grad and s % TWIN_BLOCK != 0:
+        return f"sequence {s} is not a multiple of 64 (the backward kernel's tile)"
+    if not any(variant_takes(v, s, d) for v in VARIANT_NAMES):
+        return f"neither kernel takes sequence {s} at head_dim {d}"
+    return ""
 
 
 def attention_tensor_map(b: int, s: int, h: int, d: int) -> dict:
@@ -169,7 +195,8 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                  for t in (dq * scale, torch.cat(dks, 2), torch.cat(dvs, 2)))
 
 
-def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       grad: bool = False) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be on {q.device}")
@@ -183,19 +210,17 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
             raise ValueError(f"flash_attention: {name} must be contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
-    b, s, h, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim {d} not in (64, 128)")
-    if s % 64 != 0:
-        raise ValueError(f"flash_attention: sequence {s} is not a multiple of 64")
+    refused = kernel_refuses(q.shape[1], q.shape[3], grad)
+    if refused:
+        raise ValueError(f"flash_attention: {refused}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             variant: Optional[int] = None, with_lse: bool = False):
     """One kernel launch; ``variant`` (for measurements that time both
     kernels on one input) overrides the choice by shape and must take it.
-    Returns o, or ``(o, lse)`` with ``with_lse``."""
-    _check_cuda_inputs(q, k, v)
+    Returns o, or ``(o, lse)`` with ``with_lse`` (the forward under grad)."""
+    _check_cuda_inputs(q, k, v, grad=with_lse)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
@@ -213,8 +238,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                 lse: torch.Tensor, grad: torch.Tensor):
     """One call of the backward kernels: ``(dq, dk, dv)``."""
-    _check_cuda_inputs(q, k, v)
-    _check_cuda_inputs(q, o, grad)
+    _check_cuda_inputs(q, k, v, grad=True)
+    _check_cuda_inputs(q, o, grad, grad=True)
     b, s, h, d = q.shape
     if (lse.dtype != torch.float32 or lse.shape != (b, h, s) or not lse.is_contiguous()
             or lse.device != q.device):

@@ -184,8 +184,9 @@ class _Record:
         self.spans: List[dict] = []
         self.stack: List[int] = []  # the open spans, outermost first
         self.tensors: Dict[str, list] = defaultdict(list)
-        self.before = counts()
+        self.before = snapshot()
         self.counts: Dict[str, int] = {}
+        self.by_shape: Dict[str, Dict[tuple, int]] = {}
         self.resolved = False
 
     def open(self, name: str, attrs: dict) -> None:
@@ -204,8 +205,11 @@ class _Record:
         s["end_ns"] = time.perf_counter_ns()
 
     def finish(self) -> None:
-        self.counts = {k: v - self.before.get(k, 0) for k, v in counts().items()
-                       if v != self.before.get(k, 0)}
+        for (name, shape), n in counts_since(self.before).items():
+            if shape is None:
+                self.counts[name] = n
+            else:
+                self.by_shape.setdefault(name, {})[shape] = n
         del self.before
 
     def release(self) -> None:
@@ -225,7 +229,7 @@ class _Record:
             self.tensors.clear()
             self.resolved = True
         return {"id": self.id, "name": self.name, "device": str(self.device),
-                "spans": self.spans, "counts": self.counts}
+                "spans": self.spans, "counts": self.counts, "by_shape": self.by_shape}
 
 
 class _Span:
@@ -299,7 +303,9 @@ def requests() -> List[dict]:
     ``{"id", "name", "device", "spans", "counts"}``. Each span is ``{"name",
     "parent"`` (its parent's index in ``spans``, -1 for the root)``,
     "request", "attrs", "start_ns", "end_ns", "host_ms", "dev_ms"}``; the
-    counts are the request's deltas, the device's counts included. Reading
+    counts are the request's deltas, the device's counts included, and
+    ``by_shape`` the deltas of the counters counted by shape, ``{name:
+    {shape: n}}``. Reading
     them synchronises each CUDA device once."""
     with _LOCK:
         recs = list(_REQUESTS)
