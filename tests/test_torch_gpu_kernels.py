@@ -16,7 +16,9 @@ the UNet finetune's shape; the attention backward kernel against its twin
 and an fp32 computation at the trained shapes, tile edges and head_dim 128,
 bit-equal over two runs, the forward's log-sum-exp from both forward kernels
 against its twin, and a checkpointed transformer block's gradient with the
-kernels against the same block plain. Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
+kernels against the same block plain; kernel 6 (GroupNorm + SiLU) against
+its twin and fp32 at every served shape class, on permuted inputs read in
+place, bit-equal over two runs and in a replayed CUDA graph. Each test needs a CUDA device and skips without one. On the card, from the repository root (the test tree's conftest
 imports JAX, which the card machine does not have):
 
     python -m pytest tests/test_torch_gpu_kernels.py -m gpu --noconftest -q
@@ -24,6 +26,7 @@ imports JAX, which the card machine does not have):
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from videomv_tpu_torch import ops
 from videomv_tpu_torch.ops import flash_attention as fa
@@ -995,3 +998,127 @@ def test_spatial_transformer_dispatch_follows_the_flag(cuda, monkeypatch):
         ops.reset_launch_counts()
         mod.train()(x, ctx)  # training mode: the module path, the FFN gate closed
         assert ops.launch_counts() == dict(zero, flash_attention=1)
+
+
+# ----------------------------------------------------- kernel 6: GroupNorm
+
+# (N, C, F, H·W side, permuted): T2V's temporal norms at 48 and 24 rows,
+# its spatial ones, SV3D's temporal and spatial at 72², its 9² and 18²
+# temporal (channels of 81 and 324 elements: element stores), the VAE decoder's largest
+# groups at 256² and 576² (C 256 at 576² streams)
+GN_SHAPES = [(2, 320, 24, 32, True), (1, 320, 24, 32, True), (48, 320, 1, 32, False),
+             (2, 320, 21, 72, True), (42, 320, 1, 72, False), (2, 1280, 21, 9, True),
+             (2, 1280, 21, 18, True),
+             (2, 256, 1, 256, False), (2, 128, 1, 576, False), (1, 256, 1, 576, False),
+             (2, 2560, 24, 4, True)]
+
+
+def _gn_input(gen, dev, n, c, f, hw, permuted):
+    """bf16 x [n, c, f, hw, hw] with a mean away from 0; ``permuted``: the
+    UNets' temporal view of a contiguous [n·f, c, hw, hw]."""
+    if permuted:
+        x = _randn(gen, dev, n * f, c, hw, hw, scale=1.5)
+        x = (x + 0.5).reshape(n, f, c, hw, hw).permute(0, 2, 1, 3, 4)
+        assert not x.is_contiguous()
+        return x
+    return _randn(gen, dev, n, c, f, hw, hw, scale=1.5) + 0.5
+
+
+def _gn_affine(gen, dev, c):
+    return (_randn(gen, dev, c, scale=0.1) + 1.0, _randn(gen, dev, c, scale=0.1))
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_matches_fp32(cuda, shape, silu):
+    from videomv_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, c, f, hw, permuted = shape
+    x = _gn_input(gen, cuda, n, c, f, hw, permuted)
+    w, b = _gn_affine(gen, cuda, c)
+    eps = 1e-6 if shape[0] != 48 else 1e-5
+    ops.reset_launch_counts()
+    kern = gn.group_norm(x, w, b, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert ops.launch_counts_by_shape()["group_norm"] == {(n, c, f * hw * hw, silu): 1}
+    assert kern.is_contiguous() and kern.shape == x.shape
+    twin = gn.group_norm_reference(x, w, b, 32, eps, silu)
+    ref32 = F.group_norm(x.float(), 32, w.float(), b.float(), eps)
+    ref32 = F.silu(ref32) if silu else ref32
+    ok, errs = _within_bound(kern, twin, ref32)
+    assert ok, errs
+    # one writer per element, sums in a fixed order: two runs bit-equal
+    assert torch.equal(gn.group_norm(x, w, b, 32, eps, silu), kern)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "transposed"])
+def test_group_norm_copies_what_it_does_not_read_in_place(cuda, layout):
+    from videomv_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn(gen, cuda, 6, 320, 32, 32, scale=1.5) + 0.5
+    x = (x.contiguous(memory_format=torch.channels_last) if layout == "channels_last"
+         else x.transpose(2, 3))
+    assert gn.kernel_layout(x, 32) is None
+    w, b = _gn_affine(gen, cuda, 320)
+    kern = gn.group_norm(x, w, b, 32, 1e-5, True)
+    twin = gn.group_norm_reference(x, w, b, 32, 1e-5, True)
+    ref32 = F.silu(F.group_norm(x.float(), 32, w.float(), b.float(), 1e-5))
+    ok, errs = _within_bound(kern, twin, ref32)
+    assert ok and kern.is_contiguous(), errs
+
+
+def test_group_norm_in_a_cuda_graph(cuda):
+    from videomv_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _gn_input(gen, cuda, 2, 320, 24, 32, True)
+    w, b = _gn_affine(gen, cuda, 320)
+    eager = gn.group_norm(x, w, b, 32, 1e-5, True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = gn.group_norm(x, w, b, 32, 1e-5, True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x.copy_(_gn_input(gen, cuda, 2, 320, 24, 32, True))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, gn.group_norm(x, w, b, 32, 1e-5, True))
+
+
+def test_group_norm_module_dispatch(cuda):
+    from videomv_tpu_torch.models.blocks import GroupNorm, TemporalConvBlockV2
+    from videomv_tpu_torch.utils import profiling
+
+    block = TemporalConvBlockV2(320).to(cuda, torch.bfloat16).eval()
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _gn_input(gen, cuda, 2, 320, 24, 16, True)
+    profiling.reset_counts(["gn.plain"])
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = block(x)
+    # four norms with their SiLU fused, the first on the permuted input
+    assert ops.launch_counts_by_shape()["group_norm"] == {(2, 320, 24 * 256, True): 4}
+    assert profiling.counts_by_shape("gn.plain") == {}
+    norm = GroupNorm(32, 320).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        norm(x)  # training mode: plain, counted
+    assert profiling.counts_by_shape("gn.plain") == {(2, 320, 24 * 256, False): 1}
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+def test_group_norm_rejects_what_it_cannot_take(cuda):
+    from videomv_tpu_torch.ops import group_norm as gn
+
+    w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
+    x = torch.zeros(2, 64, 8, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gn.group_norm(torch.zeros_like(x[:, :48]), w[:48], w[:48], 32, 1e-5)  # 32 ∤ 48
+    with pytest.raises(ValueError):
+        gn.group_norm(x.float(), w, w, 32, 1e-5)
+    with pytest.raises(ValueError):
+        gn.group_norm(x, w[:32], w, 32, 1e-5)

@@ -101,7 +101,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_every_cuda_source_is_built_and_bound():
     """Each ``csrc/*.cu`` defines the C entry points ``_build`` binds, the
     shared device code sits in headers beside them, and every kernel source
-    states which TPU kernel it replaces."""
+    states which TPU kernel it replaces, or that it replaces none."""
     import glob
     import re
 
@@ -110,13 +110,14 @@ def test_every_cuda_source_is_built_and_bound():
     srcs = sorted(glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")))
     assert [os.path.basename(s) for s in srcs] == [
         "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu", "fused_spatial.cu",
-        "splat_composite.cu", "splat_composite_bwd.cu"]
+        "group_norm.cu", "splat_composite.cu", "splat_composite_bwd.cu"]
     entry = {}
     for path in srcs:
         text = open(path).read()
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
             entry[name] = len([p for p in params.split(",") if p.strip()])
-        assert "// Replaces: videomv_tpu/ops/" in text, path
+        assert ("// Replaces: videomv_tpu/ops/" in text
+                or "// Replaces no TPU kernel: " in text), path
     # the same names, and as many arguments as the ctypes signature passes
     assert entry == {name: len(sig) for name, sig in _build._SIGNATURES.items()}
     # kernels 1, 2 and 5 share their tile code through headers, not copies,
@@ -133,6 +134,7 @@ def test_every_cuda_source_is_built_and_bound():
     for hdr in ("hopper_utils.cuh", "wgmma_ops.cuh"):
         for u in ("flash_attention.cu", "fused_ffn.cu", "fused_spatial.cu"):
             assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
-        for u in ("flash_attention_bwd.cu", "splat_composite.cu", "splat_composite_bwd.cu"):
+        for u in ("flash_attention_bwd.cu", "group_norm.cu", "splat_composite.cu",
+                  "splat_composite_bwd.cu"):
             assert f'#include "{hdr}"' not in open(os.path.join(_build.CSRC_DIR, u)).read()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

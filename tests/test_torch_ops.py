@@ -57,7 +57,8 @@ def test_attention_wrapper_on_cpu_runs_the_twin():
                                    "geglu_ffn": 0, "splat_composite": 0,
                                    "splat_composite_bwd": 0, "fused_spatial": 0}
     assert ops.launch_counts_by_shape() == {"flash_attention": {}, "flash_attention_bwd": {},
-                                            "geglu_ffn": {}, "fused_spatial": {}}
+                                            "geglu_ffn": {}, "fused_spatial": {},
+                                            "group_norm": {}}
 
 
 def test_launch_counts_by_shape_reset_with_the_totals():
@@ -68,16 +69,19 @@ def test_launch_counts_by_shape_reset_with_the_totals():
     profiling.count("launch.flash_attention_bwd", 1, shape=(1, 256, 2, 64))
     profiling.count("launch.geglu_ffn", 2, shape=(4096, 320, 1280))
     profiling.count("launch.fused_spatial", 5, shape=(48, 1024, 320, 145))
+    profiling.count("launch.group_norm", 4, shape=(2, 320, 24576, True))
     assert ops.launch_counts_by_shape() == {"flash_attention": {(1, 256, 2, 64): 3},
                                             "flash_attention_bwd": {(1, 256, 2, 64): 1},
                                             "geglu_ffn": {(4096, 320, 1280): 2},
-                                            "fused_spatial": {(48, 1024, 320, 145): 5}}
+                                            "fused_spatial": {(48, 1024, 320, 145): 5},
+                                            "group_norm": {(2, 320, 24576, True): 4}}
     assert ops.launch_counts() == {"flash_attention": 3, "flash_attention_bwd": 1,
                                    "geglu_ffn": 2, "splat_composite": 0,
                                    "splat_composite_bwd": 0, "fused_spatial": 5}
     ops.reset_launch_counts()
     assert ops.launch_counts_by_shape() == {"flash_attention": {}, "flash_attention_bwd": {},
-                                            "geglu_ffn": {}, "fused_spatial": {}}
+                                            "geglu_ffn": {}, "fused_spatial": {},
+                                            "group_norm": {}}
     assert not any(ops.launch_counts().values())
 
 

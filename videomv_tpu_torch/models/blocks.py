@@ -17,6 +17,12 @@ the long spatial self-attention in bf16) and the GEGLU feed-forward through
 ``ops.geglu_ffn`` (fused CUDA kernel where the JAX package fuses), with the
 plain compositions everywhere else.
 
+Every GroupNorm is a ``GroupNorm`` (``nn.GroupNorm``'s parameters and
+keys), and every GroupNorm → SiLU pair a ``NormSiLU``: in eval mode, with no
+autograd recording and a bf16 CUDA input, the norm and its SiLU are one
+launch of kernel 6 (``ops.group_norm``), which reads the temporal blocks'
+permuted inputs where they lie.
+
 Layers tagged ``zero_init`` (``zero_module``) start at zero, as in the JAX
 package, so a freshly initialised UNet outputs exactly 0.
 """
@@ -38,6 +44,8 @@ from ..ops.fused_spatial import (
     kernel_params,
     spatial_fused_eligible,
 )
+from ..ops.group_norm import count_plain, group_norm_eligible
+from ..ops.group_norm import group_norm as group_norm_op
 from ..parallel.collectives import all_reduce, group_norm
 from ..parallel.infer import current_frame_shard
 
@@ -47,6 +55,8 @@ __all__ = [
     "Downsample",
     "DropPath",
     "FeedForward",
+    "GroupNorm",
+    "NormSiLU",
     "RelativePositionBias",
     "ResBlock",
     "SpatialResBlock",
@@ -58,6 +68,7 @@ __all__ = [
     "TemporalTransformerAttemask",
     "TimestepMLP",
     "Upsample",
+    "residual",
     "rotary_rotate",
     "sinusoidal_embedding",
     "zero_module",
@@ -84,6 +95,47 @@ def sinusoidal_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
     if dim % 2 != 0:
         x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
     return x
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` (the same parameters and keys) whose ``forward(x,
+    silu=False)`` can apply SiLU to its output. In eval mode, with no
+    autograd recording and a bf16 CUDA input the kernel takes
+    (``ops.group_norm.group_norm_eligible``), the norm and the SiLU are one
+    launch of kernel 6, whose output is contiguous; otherwise PyTorch's norm
+    and ``F.silu``, a bf16 call counted in ``gn.plain``."""
+
+    def on_kernel(self, x: torch.Tensor) -> bool:
+        """Whether ``forward(x)`` launches kernel 6."""
+        return not self.training and group_norm_eligible(x, self.weight, self.bias,
+                                                         self.num_groups)
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        if self.on_kernel(x):
+            return group_norm_op(x, self.weight, self.bias, self.num_groups, self.eps, silu)
+        count_plain(x, silu)
+        h = super().forward(x)
+        return F.silu(h) if silu else h
+
+
+def residual(x: torch.Tensor, h: torch.Tensor, norm: GroupNorm) -> torch.Tensor:
+    """``x + h`` for a block whose output ``h`` is a permuted (channels-last)
+    view. Where the block's ``norm`` runs on kernel 6 the sum takes x's NCHW
+    layout, which the next block's GroupNorm reads in place; on the plain
+    path it takes h's layout, as it always has."""
+    return x + h if norm.on_kernel(x) else h + x
+
+
+class NormSiLU(nn.Sequential):
+    """``Sequential(GroupNorm, SiLU, *rest)`` (a Sequential's keys) that runs
+    the norm with its SiLU fused, then the rest."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self[0](x, silu=True)
+        for i, layer in enumerate(self):
+            if i >= 2:
+                h = layer(h)
+        return h
 
 
 class TimestepMLP(nn.Sequential):
@@ -202,7 +254,7 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = n_heads * d_head
         self.n_heads, self.d_head, self.depth = n_heads, d_head, depth
-        self.norm = nn.GroupNorm(32, in_channels, eps=1e-6)
+        self.norm = GroupNorm(32, in_channels, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, context_dim, dropout)
@@ -224,7 +276,7 @@ class SpatialTransformer(nn.Module):
         for block in self.transformer_blocks:
             h = block(h, context)
         h = self.proj_out(h)
-        return h.reshape(bf, hh, ww, c).permute(0, 3, 1, 2) + x
+        return residual(x, h.reshape(bf, hh, ww, c).permute(0, 3, 1, 2), self.norm)
 
 
 def _over_frames(x: torch.Tensor, fn) -> torch.Tensor:
@@ -254,7 +306,7 @@ class TemporalTransformer(nn.Module):
         super().__init__()
         inner = n_heads * d_head
         self.multiply_zero = multiply_zero
-        self.norm = nn.GroupNorm(32, in_channels, eps=1e-6)
+        self.norm = GroupNorm(32, in_channels, eps=1e-6)
         self.proj_in = nn.Conv1d(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, None, dropout) for _ in range(depth))
@@ -357,7 +409,7 @@ class TemporalAttentionBlock(nn.Module):
         super().__init__()
         self.dim, self.heads, self.rotary_dim = dim, heads, rotary_dim
         self.use_image_dataset, self.use_sim_mask = use_image_dataset, use_sim_mask
-        self.norm = nn.GroupNorm(32, dim, eps=1e-5)
+        self.norm = GroupNorm(32, dim, eps=1e-5)
         self.to_qkv = nn.Linear(dim, dim * 3)
         self.to_out = nn.Linear(dim, dim)
 
@@ -459,10 +511,10 @@ def _tconv(c_in: int, c_out: int, dropout: Optional[float], zero: bool = False) 
     conv = nn.Conv3d(c_in, c_out, (3, 1, 1), padding=(1, 0, 0))
     if zero:
         conv = zero_module(conv)
-    layers = [nn.GroupNorm(32, c_in, eps=1e-5), nn.SiLU()]
+    layers = [GroupNorm(32, c_in, eps=1e-5), nn.SiLU()]
     if dropout is not None:
         layers.append(nn.Dropout(dropout))
-    return nn.Sequential(*layers, conv)
+    return NormSiLU(*layers, conv)
 
 
 class TemporalConvBlockV2(nn.Module):
@@ -509,11 +561,11 @@ class SpatialResBlock(nn.Module):
                  out_channels: Optional[int] = None):
         super().__init__()
         out_ch = out_channels or channels
-        self.in_layers = nn.Sequential(nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
-                                       nn.Conv2d(channels, out_ch, 3, padding=1))
+        self.in_layers = NormSiLU(GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
+                                  nn.Conv2d(channels, out_ch, 3, padding=1))
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_ch))
-        self.out_layers = nn.Sequential(
-            nn.GroupNorm(32, out_ch, eps=1e-5), nn.SiLU(), nn.Dropout(dropout),
+        self.out_layers = NormSiLU(
+            GroupNorm(32, out_ch, eps=1e-5), nn.SiLU(), nn.Dropout(dropout),
             zero_module(nn.Conv2d(out_ch, out_ch, 3, padding=1)))
         self.skip_connection = (nn.Identity() if out_ch == channels
                                 else nn.Conv2d(channels, out_ch, 1))

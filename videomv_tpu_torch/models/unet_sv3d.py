@@ -51,9 +51,12 @@ from .blocks import (
     CrossAttention,
     Downsample,
     FeedForward,
+    GroupNorm,
+    NormSiLU,
     SpatialResBlock,
     SpatialTransformer,
     Upsample,
+    residual,
     sinusoidal_embedding,
     zero_module,
 )
@@ -85,10 +88,10 @@ class TemporalResBlock(nn.Module):
     def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0):
         super().__init__()
         conv = lambda: nn.Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
-        self.in_layers = nn.Sequential(nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(), conv())
+        self.in_layers = NormSiLU(GroupNorm(32, channels, eps=1e-5), nn.SiLU(), conv())
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, channels))
-        self.out_layers = nn.Sequential(nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
-                                        nn.Dropout(dropout), zero_module(conv()))
+        self.out_layers = NormSiLU(GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
+                                   nn.Dropout(dropout), zero_module(conv()))
         self.skip_connection = nn.Identity()
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -178,7 +181,7 @@ class SpatialVideoTransformer(SpatialTransformer):
             h_mix = h_mix.view(b, s, t, inner).transpose(1, 2).reshape(bt, s, inner)
             h = self.time_mixer(h, h_mix)
         h = self.proj_out(h)
-        return h.reshape(bt, hh, ww, c).permute(0, 3, 1, 2) + x
+        return residual(x, h.reshape(bt, hh, ww, c).permute(0, 3, 1, 2), self.norm)
 
 
 class _Sequential(nn.ModuleList):
@@ -250,9 +253,8 @@ class VideoUNet(nn.Module):
                     layers.append(Upsample(ch))
                     ds //= 2
                 self.output_blocks.append(_Sequential(layers))
-        self.out = nn.Sequential(nn.GroupNorm(32, ch, eps=1e-5), nn.SiLU(),
-                                 zero_module(nn.Conv2d(model_channels, out_channels, 3,
-                                                       padding=1)))
+        self.out = NormSiLU(GroupNorm(32, ch, eps=1e-5), nn.SiLU(),
+                            zero_module(nn.Conv2d(model_channels, out_channels, 3, padding=1)))
         # the CUDA graphs of a serving pipeline's forward (models/graphed.py)
         self.graphs: Optional[GraphedForward] = None
 

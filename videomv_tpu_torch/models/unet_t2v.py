@@ -56,6 +56,8 @@ from torch.utils.checkpoint import (
 from ..parallel.infer import current_frame_shard
 from .blocks import (
     Downsample,
+    GroupNorm,
+    NormSiLU,
     RelativePositionBias,
     ResBlock,
     SpatialTransformer,
@@ -227,8 +229,8 @@ class UNetSD_T2VBase(nn.Module):
         self.output_blocks = nn.ModuleList(
             nn.ModuleList(self._block(in_dim, *e) for e in entry) for entry in dec_entries)
 
-        self.out = nn.Sequential(nn.GroupNorm(32, dim, eps=1e-5), nn.SiLU(),
-                                 zero_module(nn.Conv2d(dim, out_dim, 3, padding=1)))
+        self.out = NormSiLU(GroupNorm(32, dim, eps=1e-5), nn.SiLU(),
+                            zero_module(nn.Conv2d(dim, out_dim, 3, padding=1)))
         # the CUDA graphs of a serving pipeline's forward (models/graphed.py)
         self.graphs: Optional[GraphedForward] = None
 

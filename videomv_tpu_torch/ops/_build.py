@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 ]
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_c_longlong = ctypes.c_longlong
 # C entry points and their argument types; every pointer and the stream are
 # void*, so ctypes never truncates them to 32-bit ints
 _SIGNATURES = {
@@ -54,6 +55,12 @@ _SIGNATURES = {
     # a host array of the device pointers, then R, S, C, L, Cc, heads, inner,
     # variant
     "vmv_fused_spatial_fwd": [_c_void_p] + [_c_int] * 8 + [_c_void_p],
+    # x, weight, bias, out, the sample and run strides, then N, C, G, R, P,
+    # eps, silu, and the plan: cluster, slice_vecs, res_vecs, threads
+    "vmv_group_norm_fwd": [_c_void_p] * 4 + [_c_longlong] * 2 + [_c_int] * 5 + [_c_float]
+    + [_c_int] * 5 + [_c_void_p],
+    # cluster, res_vecs, threads
+    "vmv_group_norm_max_clusters": [_c_int] * 3,
 }
 
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")

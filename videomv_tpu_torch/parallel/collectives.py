@@ -28,6 +28,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..ops.group_norm import count_plain
+
 __all__ = ["all_gather_cat", "all_reduce", "all_to_all", "broadcast", "frames_to_tokens",
            "group_norm", "token_splits", "tokens_to_frames"]
 
@@ -106,9 +108,11 @@ def group_norm(norm: nn.GroupNorm, x: torch.Tensor, group: Optional[object] = No
                ) -> torch.Tensor:
     """``norm(x)`` with the statistics of each (row, channel group) taken
     over the elements that every rank of ``group`` holds of it (``x``'s dims
-    after the channel). ``group=None`` is ``norm(x)`` itself."""
+    after the channel), in plain PyTorch (a bf16 call counted in
+    ``gn.plain``). ``group=None`` is ``norm(x)`` itself."""
     if group is None:
         return norm(x)
+    count_plain(x)
     b, c = x.shape[:2]
     g = norm.num_groups
     xf = x.reshape(b, g, -1).float()
