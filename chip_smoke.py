@@ -22,12 +22,13 @@ Phases (each prints its lines; a failed phase exits non-zero):
      bit-equal; kernel, twin and the library's backward timed), the FFN
      wrapper's backward against autograd of its twin, and the fused spatial block
      at the UNet's 32² / C = 320 stage over the I2V and T2V contexts (error
-     vs its fp32 twin, held to twice the bf16 module path's, for both
-     hand-written kernels; the module path's time beside it; its backward);
+     vs its fp32 twin, held to twice the bf16 module path's; the module
+     path's time beside it; its backward);
      CUDA-event times in turns
-     plain/kernel/kernel/plain beside each kernel's bound (the larger of its
-     bytes over 3.35 TB/s and its operations over the peak rate of their
-     type), its share of that bound, which hand-written kernel served the
+     plain/kernel/kernel/plain beside each kernel's bound (mvbench/roofline.py:
+     the larger of its bytes over 3.35 TB/s and its operations over the peak
+     rate of their type), its share of that bound, which of attention's two
+     hand-written kernels served the
      shape and, for attention, the time of one scaled_dot_product_attention
      call as a yardstick; launch counters; two launches bit-equal;
   4. unet: one full-width (dim 320) CFG forward at 8 views with seeded
@@ -175,6 +176,11 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the peaks, bounds and kernel classes the benchmark reads
+from mvbench.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_BYTES_S, PEAK_FP32_FLOPS, SPATIAL_WGMMA_KERNELS, attn_bound_ms,
+    attn_bwd_bound_ms, bound_ms as _bound_ms, ffn_bound_ms, kernel_class)
 # kernel sources for the JSON record, and the TPU kernels they replace
 KERNELS = {
     "flash_attention": dict(
@@ -201,12 +207,6 @@ KERNELS = {
     "group_norm": dict(
         route="cuda", source="videomv_tpu_torch/csrc/group_norm.cu", replaces=None),
 }
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
-# kernel is the larger of its bytes over the memory rate and its operations
-# over the peak rate of their type.
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
 # fp32 operations of the two splat kernels, counted as the least work any
 # implementation must do on this run's data. Only at an alive (pixel, pair)
 # point (power <= 0 and alpha >= 1/255) does a pair change the output, and
@@ -505,9 +505,6 @@ REFINE_L2_TOL = 0.5
 SPATIAL_SHAPES = {(48, 145): 235, (24, 145): 15, (48, 77): 0}
 SPATIAL_S, SPATIAL_C, SPATIAL_HEADS, SPATIAL_CC = 1024, 320, 5, 1024
 SPATIAL_FLAG = "VIDEOMV_ENABLE_FUSED_SPATIAL"
-# the three __global__s of kernel 5's wgmma variant (phases A, B, C)
-SPATIAL_WGMMA_KERNELS = ("spatial_ctx_kv_wgmma_kernel", "spatial_front_kv_wgmma_kernel",
-                         "spatial_block_wgmma_kernel")
 # kernel 3's two variants, each for both payloads: the build phase reports
 # their registers, shared memory and spills, and fails on a spill
 SPLAT_FWD_KERNELS = tuple(f"{k}<{p}>" for k in ("splat_composite_culled_kernel",
@@ -710,30 +707,11 @@ def _time_turns(torch, plain, kernel, iters=20):
 
 
 def _bound(n_bytes, ops, peak_ops):
-    """(bound_ms, bound_by): the least time the card could take for work
-    that must move ``n_bytes`` and do ``ops`` operations of the type whose
-    peak rate is ``peak_ops``."""
-    by_bytes, by_ops = 1e3 * n_bytes / PEAK_BYTES_S, 1e3 * ops / peak_ops
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def _attn_bound(shape):
-    b, s, h, d = shape  # q, k, v read and out written in bf16; QK^T and PV
-    return _bound(4 * b * s * h * d * 2, 4 * b * h * s * s * d, PEAK_BF16_FLOPS)
-
-
-def _attn_bwd_bound(shape):
-    """q, k, v, o and dO read, dQ, dK and dV written in bf16, lse read in
-    fp32; the five products (S = QKᵀ, dP = dO Vᵀ, dV, dQ, dK) of 2·S²·D each
-    per (batch, head)."""
-    b, s, h, d = shape
-    return _bound(8 * b * s * h * d * 2 + 4 * b * h * s, 10 * b * h * s * s * d,
-                  PEAK_BF16_FLOPS)
-
-
-def _ffn_bound(t, c, inner):
-    n_bytes = 2 * (2 * t * c + 3 * c * inner) + 4 * (2 * inner + c)
-    return _bound(n_bytes, 6 * t * c * inner, PEAK_BF16_FLOPS)
+    """(bound_ms, bound_by): mvbench.roofline's bound of work that must move
+    ``n_bytes`` and do ``ops`` operations of the type whose peak rate is
+    ``peak_ops``, and which of the two it is."""
+    return (_bound_ms(n_bytes, ops, peak_ops),
+            "bytes" if n_bytes / PEAK_BYTES_S >= ops / peak_ops else "operations")
 
 
 def _splat_stats(torch, payload, tile_start, tile_count, nts, block=1 << 17):
@@ -1163,7 +1141,6 @@ def _spatial_kernel_checks(torch, dev):
     nothing)."""
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.models.blocks import SpatialTransformer
-    from videomv_tpu_torch.ops import fused_spatial as fs
     from videomv_tpu_torch.ops.fused_spatial import (
         fused_spatial_transformer, spatial_block_reference, spatial_params)
     from videomv_tpu_torch.training.checkpoints import init_weights
@@ -1194,9 +1171,6 @@ def _spatial_kernel_checks(torch, dev):
                 fail("kernels", f"fused_spatial {(r, kv_len)}: counters {ops.launch_counts()}")
             if not torch.equal(fused_spatial_transformer(x, ctx, params, heads), kern):
                 fail("kernels", f"fused_spatial {(r, kv_len)}: two launches differ")
-            served = fs.spatial_variant(r, s, c, kv_len, cc, heads, iff)
-            other = fs.VARIANT_MMA + fs.VARIANT_WGMMA - served
-            old = fs._launch(x, ctx, params, heads, variant=other).float()
             twin = spatial_block_reference(x, ctx, params, heads).float()
             if any(ops.launch_counts()[k] for k in ("flash_attention", "geglu_ffn")):
                 fail("kernels", "the fused block's twin launched a kernel")
@@ -1204,42 +1178,31 @@ def _spatial_kernel_checks(torch, dev):
             mod_counts = ops.launch_counts()
             k_err = (kern.float() - twin).abs().max().item()
             m_err = (module.float() - twin).abs().max().item()
-            o_err = (old - twin).abs().max().item()
             # through the module's own dispatch, flag on: the same bits
             ops.reset_launch_counts()
             with _FusedSpatialFlag(True):
                 via = mod(x4, ctx).permute(0, 2, 3, 1).reshape(r, s, c)
             same = torch.equal(via, kern) and ops.launch_counts()["fused_spatial"] == 1
             scale = twin.abs().max().item()
-            del twin, module, via, old
+            del twin, module, via
             ms, plain_ms = _time_turns(
                 torch, lambda: spatial_block_reference(x, ctx, params, heads),
                 lambda: fused_spatial_transformer(x, ctx, params, heads), iters=5)
             module_ms = _time_one(torch, module_path, iters=5)
-            # the other hand-written kernel on the same input, in turns with
-            # the serving one (served, other, other, served)
-            other_ms, served_ms = _time_turns(
-                torch, lambda: fs._launch(x, ctx, params, heads, variant=served),
-                lambda: fs._launch(x, ctx, params, heads, variant=other), iters=10)
-        ok = k_err <= 2 * m_err + KERNEL_EPS and o_err <= 2 * m_err + KERNEL_EPS and same
+        ok = k_err <= 2 * m_err + KERNEL_EPS and same
         bound_ms, bound_by = _spatial_bound(r, s, c, kv_len, cc, iff)
         runs.append(dict(shape=[r, s, c, kv_len], calls_per_request=calls,
                          calls_per_train_step=0, **_slice_e_calls("fused_spatial", ()),
                          max_abs_err=k_err, module_err_vs_twin=m_err,
                          ms=ms, plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None, variant=fs.VARIANT_NAMES[served],
-                         share_of_bound=bound_ms / ms, other_variant_ms=other_ms,
-                         other_variant_err=o_err, served_variant_ms_in_turns=served_ms))
+                         bound_by=bound_by, library_ms=None, share_of_bound=bound_ms / ms))
         say("kernels", f"fused_spatial x [{r}, {s}, {c}] ctx [{r}, {kv_len}, {cc}] "
-            f"({fs.VARIANT_NAMES[served]} kernel, {100 * bound_ms / ms:.1f}% of its bound): "
-            f"|k-twin(fp32)| {k_err:.3e}, the {fs.VARIANT_NAMES[other]} kernel's {o_err:.3e}, "
+            f"({100 * bound_ms / ms:.1f}% of its bound): |k-twin(fp32)| {k_err:.3e}, "
             f"bf16 module path |m-twin| {m_err:.3e} (bound 2x + {KERNEL_EPS:.0e}), "
             f"max|twin| {scale:.3e}, module dispatch bit-identical {same}; kernel {ms:.4f} ms "
             f"plain twin (fp32) {plain_ms:.4f} ms module path (kernels 1 + 2 + PyTorch ops, "
             f"launches {mod_counts['flash_attention']} + {mod_counts['geglu_ffn']}) "
-            f"{module_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); in turns with the other "
-            f"hand-written kernel: serving {served_ms:.4f} ms, other ({fs.VARIANT_NAMES[other]}) "
-            f"{other_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+            f"{module_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"fused_spatial {(r, kv_len)} outside its error bound")
         del x4, x, ctx, kern
@@ -1380,7 +1343,6 @@ def phase_ffn_ablation():
 def phase_kernels(torch, only=None):
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.ops import flash_attention as fa
-    from videomv_tpu_torch.ops import fused_ffn as ff
     from videomv_tpu_torch.ops.flash_attention import (
         attention_backward_reference, attention_lse_reference, attention_reference,
         flash_attention)
@@ -1442,19 +1404,19 @@ def phase_kernels(torch, only=None):
         lib_err = (F.scaled_dot_product_attention(qt, kt_, vt).transpose(1, 2).float()
                    - ref32).abs().max().item()
         library_ms = _time_one(torch, lambda: F.scaled_dot_product_attention(qt, kt_, vt))
-        bound_ms, bound_by = _attn_bound(shape)
+        bound_ms = attn_bound_ms(*shape)
         results["flash_attention"].append(dict(
             shape=list(shape), calls_per_request=ATTN_SHAPES.get(shape, 0),
             calls_per_train_step=TRAIN_ATTN_SHAPES.get(shape, 0),
             **_slice_e_calls("flash_attention", shape), err_vs_fp32=k_err,
             twin_err_vs_fp32=t_err, max_abs_err=kt, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            bound_ms=bound_ms, library_ms=library_ms,
             variant=fa.VARIANT_NAMES[served], share_of_bound=bound_ms / ms,
             other_variant_ms=other_ms, served_variant_ms_in_turns=served_ms))
         say("kernels", f"flash_attention {list(shape)} ({fa.VARIANT_NAMES[served]} "
             f"kernel, {100 * bound_ms / ms:.1f}% of its bound): |k-fp32| {k_err:.3e} "
             f"|twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) library call "
+            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms library call "
             f"(scaled_dot_product_attention) {library_ms:.4f} ms, its |fp32| error "
             f"{lib_err:.3e}; in turns with the other hand-written kernel: serving "
             f"{served_ms:.4f} ms, other {other_ms:.4f} ms {'ok' if ok else 'FAIL'}")
@@ -1499,10 +1461,10 @@ def phase_kernels(torch, only=None):
                 lambda: fa._launch(q, k, v, variant=other))
         qt, kt_, vt = (a.transpose(1, 2) for a in (q, k, v))
         library_ms = _time_one(torch, lambda: F.scaled_dot_product_attention(qt, kt_, vt))
-        bound_ms, bound_by = _attn_bound(shape)
+        bound_ms = attn_bound_ms(*shape)
         results["flash_attention"].append(dict(
             shape=list(shape), calls_per_request=0, calls_per_train_step=0, err_vs_fp32=k_err, twin_err_vs_fp32=t_err, max_abs_err=kt,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             library_ms=library_ms, variant=fa.VARIANT_NAMES[served],
             share_of_bound=bound_ms / ms, other_variant_ms=other_ms,
             served_variant_ms_in_turns=served_ms))
@@ -1512,7 +1474,7 @@ def phase_kernels(torch, only=None):
         say("kernels", f"flash_attention {list(shape)} SV3D ({fa.VARIANT_NAMES[served]} kernel, "
             f"ragged tail, {100 * bound_ms / ms:.1f}% of its bound): |k-fp32| {k_err:.3e} "
             f"|twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} "
-            f"ms (chunks of {SV3D_TWIN_ROWS} rows) bound {bound_ms:.4f} ms ({bound_by}) library "
+            f"ms (chunks of {SV3D_TWIN_ROWS} rows) bound {bound_ms:.4f} ms library "
             f"call {library_ms:.4f} ms; {turns} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"flash_attention {shape} outside its error bound")
@@ -1568,7 +1530,7 @@ def phase_kernels(torch, only=None):
         got_ = go.transpose(1, 2)
         library_ms = _time_one(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt_, vt), got_, retain_graph=True), 5)
-        bound_ms, bound_by = _attn_bwd_bound(shape)
+        bound_ms = attn_bwd_bound_ms(*shape)
         results["flash_attention_bwd"].append(dict(
             shape=list(shape), calls_per_train_step=TRAIN_ATTN_BWD_SHAPES.get(shape, 0),
             calls_per_unet_train_step=unet_train_bwd_shapes(
@@ -1580,13 +1542,13 @@ def phase_kernels(torch, only=None):
             err_vs_fp32=k_err, twin_err_vs_fp32=t_err, rel_err_vs_twin=kt,
             max_abs_err=max(a[2] for a in acc.values()), lse_err=lse_err,
             errors_by_gradient=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms, share_of_bound=bound_ms / ms))
+            library_ms=library_ms, share_of_bound=bound_ms / ms))
         say("kernels", f"flash_attention backward {list(shape)} ({100 * bound_ms / ms:.1f}% of "
             f"its bound): relative to each gradient's largest entry (dq, dk, dv) |k-fp32| "
             f"{[f'{r[0]:.3e}' for r in rel.values()]} |twin-fp32| "
             f"{[f'{r[1]:.3e}' for r in rel.values()]} |k-twin| {kt:.3e}; |lse-twin| "
             f"{lse_err:.3e} (bound {LSE_TOL:.0e}); two runs bit-equal; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library call "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms, library call "
             f"(scaled_dot_product_attention's backward) {library_ms:.4f} ms "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1616,24 +1578,16 @@ def phase_kernels(torch, only=None):
         ms, plain_ms = _time_turns(torch, lambda: geglu_ffn_reference(x, w1, b1, w2, b2),
                                    lambda: geglu_ffn(x, w1, b1, w2, b2))
         ok = k_err <= 2 * t_err + KERNEL_EPS and kt <= KERNEL_VS_TWIN_TOL
-        served = ff.ffn_variant(t, c, inner)
-        other_ms, served_ms = _time_turns(  # (second, first)
-            torch, lambda: ff._launch(x, w1, b1, w2, b2, variant=served),
-            lambda: ff._launch(x, w1, b1, w2, b2,
-                               variant=ff.VARIANT_MMA + ff.VARIANT_WGMMA - served), iters=10)
-        bound_ms, bound_by = _ffn_bound(t, c, inner)
+        bound_ms = ffn_bound_ms(t, c, inner)
         results["geglu_ffn"].append(dict(
             shape=[t, c, inner], calls_per_request=FFN_SHAPES.get((t, c, inner), 0),
             calls_per_train_step=0, **_slice_e_calls("geglu_ffn", (t, c, inner)),
             err_vs_fp32=k_err, twin_err_vs_fp32=t_err,
-            max_abs_err=kt, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, variant=ff.VARIANT_NAMES[served], share_of_bound=bound_ms / ms,
-            other_variant_ms=other_ms, served_variant_ms_in_turns=served_ms))
-        say("kernels", f"geglu_ffn [T={t}, C={c}, I={inner}] ({ff.VARIANT_NAMES[served]} "
-            f"kernel, {100 * bound_ms / ms:.1f}% of its bound): |k-fp32| {k_err:.3e} "
-            f"|twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); in turns with the "
-            f"other hand-written kernel: serving {served_ms:.4f} ms, other {other_ms:.4f} ms "
+            max_abs_err=kt, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            library_ms=None, share_of_bound=bound_ms / ms))
+        say("kernels", f"geglu_ffn [T={t}, C={c}, I={inner}] ({100 * bound_ms / ms:.1f}% of "
+            f"its bound): |k-fp32| {k_err:.3e} |twin-fp32| {t_err:.3e} |k-twin| {kt:.3e} "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail("kernels", f"geglu_ffn {(t, c, inner)} outside its error bound")
@@ -1775,7 +1729,6 @@ def main(argv=None):
     if "multirank" in phases and "dist_train" not in phases:
         p.error("multirank takes the dist_train phase's UNet, batch and loss: add dist_train")
 
-    sys.path.insert(0, ROOT)
     import torch
 
     if args.define:
@@ -1910,7 +1863,7 @@ def main(argv=None):
             name=name, **KERNELS[name], launches=by_path[path].get(name), path=path,
             launches_by_path={k: v.get(name) for k, v in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in runs), ms=total("ms"),
-            kernel_ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"), bound_by=top["bound_by"],
+            kernel_ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"), bound_by=top.get("bound_by"),
             library_ms=total("library_ms"), shapes=runs))
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)
@@ -2639,20 +2592,6 @@ def phase_i2v(torch):
     return counts_plain, counts_refined
 
 
-_KERNEL_CLASSES = (  # (class, name substrings), first match wins
-    ("fused_spatial (ours)", SPATIAL_WGMMA_KERNELS + (
-        "spatial_block_kernel", "spatial_kv_kernel", "ctx_kv_kernel", "gn_stats_kernel")),
-    ("flash_attention (ours)", ("flash_attn_fwd_kernel", "flash_attn_wgmma_kernel")),
-    ("geglu_ffn (ours)", ("geglu_ffn_kernel", "geglu_ffn_wgmma_kernel")),
-    ("convolution", ("conv", "fprop", "dgrad", "implicit")),
-    ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "matmul")),
-    ("normalisation", ("norm", "moments")),
-    ("softmax", ("softmax",)),
-    ("copy / layout", ("copy", "cat", "transpose", "index")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
-)
-
-
 def phase_profile(torch):
     """Where a served request's time goes: CUDA-event times of its parts at
     the served shapes (a CFG forward, the decode, the text encode, and the
@@ -2932,8 +2871,7 @@ def _profile_forward(torch, forward, what, trace_name, n_fwd=2):
         return {}
     classes = {}
     for name, ms in kernels.items():
-        low = name.lower()
-        cls = next((c for c, keys in _KERNEL_CLASSES if any(k in low for k in keys)), "other")
+        cls = kernel_class(name)
         classes[cls] = classes.get(cls, 0.0) + ms
     say("profile", f"torch.profiler, {n_fwd} x {what}: wall {wall_ms / n_fwd:.2f} ms, "
         f"kernels {busy / n_fwd:.2f} ms per forward, device busy {100 * busy / wall_ms:.1f}%")
@@ -3586,9 +3524,7 @@ def phase_unet_train(torch):
     else:
         classes = {}
         for name, ms in kernels.items():
-            low = name.lower()
-            cls = next((c for c, keys in _KERNEL_CLASSES if any(k in low for k in keys)),
-                       "other")
+            cls = kernel_class(name)
             classes[cls] = classes.get(cls, 0.0) + ms
         say("unet_train", f"torch.profiler, 2 train steps (encode included): wall "
             f"{wall_ms / 2:.2f} ms, kernels {busy / 2:.2f} ms per step, device busy "
@@ -4698,7 +4634,6 @@ def _multirank_rank(rank, n, steps, serve_path, train_path):
 
     import torch
 
-    sys.path.insert(0, ROOT)
     from videomv_tpu_torch import ops
     from videomv_tpu_torch.config import load_config, load_inference_config
     from videomv_tpu_torch.diffusion import GaussianDiffusion

@@ -139,15 +139,16 @@ def test_backward_matches_jax_vjp(block):
 
 BF16 = torch.bfloat16
 GATE_CASES = {
-    # name: (env flag, (s, c, inner, heads, dtype, is_cuda), eligible)
-    "the served shape": ("1", (1024, 320, 320, 5, BF16, True), True),
-    "no env flag": (None, (1024, 320, 320, 5, BF16, True), False),
-    "a CPU tensor": ("1", (1024, 320, 320, 5, BF16, False), False),
-    "fp32": ("1", (1024, 320, 320, 5, torch.float32, True), False),
-    "S = 256": ("1", (256, 320, 320, 5, BF16, True), False),
-    "C = 640": ("1", (1024, 640, 640, 10, BF16, True), False),
-    "inner != C": ("1", (1024, 320, 512, 8, BF16, True), False),
-    "head_dim 32": ("1", (1024, 320, 320, 10, BF16, True), False),
+    # name: (env flag, (s, c, inner, heads, cc, dtype, is_cuda), eligible)
+    "the served shape": ("1", (1024, 320, 320, 5, 1024, BF16, True), True),
+    "no env flag": (None, (1024, 320, 320, 5, 1024, BF16, True), False),
+    "a CPU tensor": ("1", (1024, 320, 320, 5, 1024, BF16, False), False),
+    "fp32": ("1", (1024, 320, 320, 5, 1024, torch.float32, True), False),
+    "S = 256": ("1", (256, 320, 320, 5, 1024, BF16, True), False),
+    "C = 640": ("1", (1024, 640, 640, 10, 1024, BF16, True), False),
+    "inner != C": ("1", (1024, 320, 512, 8, 1024, BF16, True), False),
+    "head_dim 32": ("1", (1024, 320, 320, 10, 1024, BF16, True), False),
+    "a 768-wide context": ("1", (1024, 320, 320, 5, 768, BF16, True), False),
 }
 
 
@@ -162,14 +163,21 @@ def test_gate(case, monkeypatch):
 
 
 def test_gate_matches_jax_shape_rule(monkeypatch):
-    """With the flag set and the backend test taken out, the two gates agree
-    on the shape rule."""
+    """With the flag set and the backend test taken out, the port's gate is
+    the JAX package's shape rule held to the shape the kernel takes (C = 320,
+    a 1024-wide context): it agrees with JAX at C = 320 and refuses C = 128
+    and 384, which JAX admits."""
     monkeypatch.setenv(tfs.ENV_FLAG, "1")
     monkeypatch.setattr(jfs.jax, "default_backend", lambda: "tpu")
     for s, c, inner, heads in [(1024, 320, 320, 5), (512, 128, 128, 2), (256, 320, 320, 5),
                                (1024, 640, 640, 10), (1024, 384, 384, 6), (1024, 320, 512, 8)]:
-        assert tfs.spatial_fused_eligible(s, c, inner, heads, BF16, True) == \
-            jfs.spatial_fused_eligible(s, c, inner, heads), (s, c, inner, heads)
+        jax_rule = jfs.spatial_fused_eligible(s, c, inner, heads)
+        assert tfs.spatial_fused_eligible(s, c, inner, heads, 1024, BF16, True) == \
+            (jax_rule and c == 320), (s, c, inner, heads)
+        assert not tfs.spatial_fused_eligible(s, c, inner, heads, 768, BF16, True)
+    for s, c, inner, heads in [(512, 128, 128, 2), (1024, 384, 384, 6)]:
+        assert jfs.spatial_fused_eligible(s, c, inner, heads)
+        assert not tfs.spatial_fused_eligible(s, c, inner, heads, 1024, BF16, True)
 
 
 def test_module_takes_the_plain_path_on_cpu_with_the_flag_set(block, monkeypatch):

@@ -7,11 +7,10 @@ kernels, culled and per-tile, against their twin and autograd of the forward
 twin, on those renders, on degenerate pairs and on a NaN colour), the wrappers'
 input checks, the backward of the attention and FFN wrappers, the module
 dispatch, and the
-fused spatial-transformer block (other widths and contexts than the served
-ones, its input checks, its backward, its dispatch under the environment
-switch; the wgmma kernel at the served width against its twin at ragged
-contexts and at 1, 24 and 48 rows, with large logits, and the choice of
-kernel by shape), and the attention kernel inside a checkpointed block at
+fused spatial-transformer block (at its one width against its twin at ragged
+contexts, one-tile and odd-tile sequences and at 1, 24 and 48 rows, with
+large logits; its input checks, its backward, its dispatch under the
+environment switch, and other widths and contexts on the module path), and the attention kernel inside a checkpointed block at
 the UNet finetune's shape; the attention backward kernel against its twin
 and an fp32 computation at the trained shapes, tile edges and head_dim 128,
 bit-equal over two runs, the forward's log-sum-exp from both forward kernels
@@ -33,7 +32,8 @@ from videomv_tpu_torch.ops import flash_attention as fa
 from videomv_tpu_torch.ops.flash_attention import (
     VARIANT_MMA, VARIANT_WGMMA, attention_backward_reference, attention_lse_reference,
     attention_reference, attention_variant, flash_attention)
-from videomv_tpu_torch.ops.fused_ffn import ffn_variant, geglu_ffn, geglu_ffn_reference
+from videomv_tpu_torch.ops.fused_ffn import (
+    WGMMA_WIDTHS, ffn_eligible, geglu_ffn, geglu_ffn_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -186,8 +186,9 @@ def test_flash_attention_rejects_what_it_cannot_take(cuda):
         flash_attention(g, g, g)  # head_dim 32
 
 
-# (the last two: SV3D's row counts at its 72² and 36² levels, 21 frames × CFG)
-@pytest.mark.parametrize("t,c,inner", [(4100, 64, 256), (333, 640, 2560), (4096, 1024, 512),
+# (a ragged last tile, a short inner width, the last two: SV3D's row counts
+# at its 72² and 36² levels, 21 frames × CFG)
+@pytest.mark.parametrize("t,c,inner", [(4100, 512, 2048), (333, 640, 2560), (4096, 640, 512),
                                        (97, 320, 1280), (217728, 320, 1280),
                                        (54432, 640, 2560)])
 def test_geglu_ffn_matches_fp32(cuda, t, c, inner):
@@ -219,7 +220,7 @@ def test_geglu_ffn_tile_edges(cuda, t, c):
     w2 = _randn(gen, cuda, c, inner, scale=inner ** -0.5)
     b1 = _randn(gen, cuda, 2 * inner, scale=0.1, dtype=torch.float32)
     b2 = _randn(gen, cuda, c, scale=0.1, dtype=torch.float32)
-    assert ffn_variant(t, c, inner) == 1
+    assert c in WGMMA_WIDTHS
     kern = geglu_ffn(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     ok, errs = _within_bound(kern, geglu_ffn_reference(x, w1, b1, w2, b2),
@@ -230,16 +231,20 @@ def test_geglu_ffn_tile_edges(cuda, t, c):
 
 def test_geglu_ffn_rejects_what_it_cannot_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    x = _randn(gen, cuda, 64, 96)
-    w1, w2 = _randn(gen, cuda, 512, 96), _randn(gen, cuda, 96, 256)
+    x = _randn(gen, cuda, 64, 320)
+    w1, w2 = _randn(gen, cuda, 512, 320), _randn(gen, cuda, 320, 256)
     b1 = torch.zeros(512, device=cuda)
-    b2 = torch.zeros(96, device=cuda)
-    geglu_ffn(x, w1, b1, w2, b2)  # C = 96 is fine
+    b2 = torch.zeros(320, device=cuda)
+    geglu_ffn(x, w1, b1, w2, b2)  # C = 320 is fine
     with pytest.raises(ValueError):
         geglu_ffn(x, w1, b1.bfloat16(), w2, b2)  # bias dtype
-    with pytest.raises(ValueError):
-        geglu_ffn(x[:, :90].contiguous(), w1[:, :90].contiguous(), b1,
-                  w2[:90].contiguous(), b2[:90].contiguous())  # C % 16 != 0
+    for c in (96, 1024):  # a width the kernel is not built for: refused, never launched
+        ops.reset_launch_counts()
+        with pytest.raises(ValueError, match="320, 512, 640"):
+            geglu_ffn(_randn(gen, cuda, 64, c), _randn(gen, cuda, 512, c), b1,
+                      _randn(gen, cuda, c, 256), torch.zeros(c, device=cuda))
+        assert ops.launch_counts()["geglu_ffn"] == 0
+        assert not ffn_eligible(4096, c, 4 * c, torch.bfloat16, True)  # the module: plain
     with pytest.raises(ValueError):
         geglu_ffn(x, w1, b1, w2[:, :200].contiguous(), b2)  # shapes disagree
     with pytest.raises(ValueError):
@@ -711,7 +716,7 @@ def test_flash_attention_under_checkpoint(cuda):
 
 def test_geglu_ffn_backward_is_the_twins(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
-    t, c, inner = 4100, 64, 256
+    t, c, inner = 4100, 320, 1280
     args = [_randn(gen, cuda, t, c), _randn(gen, cuda, 2 * inner, c, scale=c ** -0.5),
             _randn(gen, cuda, 2 * inner, scale=0.1, dtype=torch.float32),
             _randn(gen, cuda, c, inner, scale=inner ** -0.5),
@@ -803,12 +808,12 @@ def _spatial_block(dev, c, heads, cc, seed=9):
     return mod, spatial_params(mod, vector_dtype=torch.float32)
 
 
-# (rows, tokens, C, heads, context tokens, context width): the CPU tests'
-# size, one 64-token tile, the widest C, a context of one tile exactly and of
-# a single token, an odd head count
+# (rows, tokens, C, heads, context tokens, context width) at the kernel's one
+# width: the CPU tests' rows and context, one 64-token tile, the I2V context,
+# a context of a single token, one key past a 128-key tile
 @pytest.mark.parametrize("r,s,c,heads,kv_len,cc", [
-    (2, 512, 128, 2, 7, 96), (3, 64, 64, 1, 64, 32), (1, 1024, 384, 6, 145, 1024),
-    (2, 576, 320, 5, 1, 1536), (2, 1024, 192, 3, 129, 64)])
+    (2, 512, 320, 5, 7, 1024), (3, 64, 320, 5, 64, 1024), (1, 1024, 320, 5, 145, 1024),
+    (2, 576, 320, 5, 1, 1024), (2, 1024, 320, 5, 129, 1024)])
 def test_fused_spatial_matches_its_fp32_twin(cuda, r, s, c, heads, kv_len, cc):
     """Error against the fp32 twin within twice the bf16 module path's."""
     from videomv_tpu_torch.ops.fused_spatial import (
@@ -835,14 +840,14 @@ def test_fused_spatial_matches_its_fp32_twin(cuda, r, s, c, heads, kv_len, cc):
     assert k_err <= 2 * m_err + EPS, (k_err, m_err)
 
 
-def _spatial_errors(mod, params, x, ctx, heads, variant=None):
+def _spatial_errors(mod, params, x, ctx, heads):
     """The kernel's and the bf16 module path's max error against the fp32
     twin, and the kernel's output."""
     from videomv_tpu_torch.ops import fused_spatial as fs
 
     r, s, c = x.shape
     with torch.no_grad():
-        kern = fs._launch(x, ctx, params, heads, variant=variant)
+        kern = fs._launch(x, ctx, params, heads)
         torch.cuda.synchronize()
         twin = fs.spatial_block_reference(x, ctx, params, heads).float()
         module = mod(x.transpose(1, 2).reshape(r, c, s, 1).contiguous(), ctx)
@@ -862,7 +867,6 @@ def test_fused_spatial_wgmma_matches_its_fp32_twin(cuda, r, s, kv_len):
     from videomv_tpu_torch.ops import fused_spatial as fs
 
     mod, params = _spatial_block(cuda, 320, 5, 1024)
-    assert fs.spatial_variant(r, s, 320, kv_len, 1024, 5, 1280) == fs.VARIANT_WGMMA
     gen = torch.Generator(device=cuda).manual_seed(r + s + kv_len)
     x = _randn(gen, cuda, r, s, 320)
     ctx = _randn(gen, cuda, r, kv_len, 1024)
@@ -875,27 +879,27 @@ def test_fused_spatial_wgmma_matches_its_fp32_twin(cuda, r, s, kv_len):
         assert torch.equal(fs._launch(x, ctx, params, 5), kern)
 
 
-def test_fused_spatial_variant_split_by_shape(cuda):
-    """The served width takes the wgmma kernel and the mma.sync kernel takes
-    it too (both right); a shape the wgmma kernel does not take is refused by
-    its C entry, never rerouted."""
+def test_fused_spatial_other_shapes_take_the_module_path(cuda, monkeypatch):
+    """A width or context the kernel is not built for is refused by the
+    wrapper, never launched; with the switch on, the module runs such a block
+    on its own composition (kernels 1 and 2 and PyTorch ops)."""
     from videomv_tpu_torch.ops import fused_spatial as fs
 
-    mod, params = _spatial_block(cuda, 320, 5, 1024)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x, ctx = _randn(gen, cuda, 2, 1024, 320), _randn(gen, cuda, 2, 145, 1024)
-    k_err, m_err, _ = _spatial_errors(mod, params, x, ctx, 5, variant=fs.VARIANT_MMA)
-    assert k_err <= 2 * m_err + EPS, (k_err, m_err)
-    _, params128 = _spatial_block(cuda, 128, 2, 96)
+    mod128, params128 = _spatial_block(cuda, 128, 2, 96)
     x128, ctx96 = _randn(gen, cuda, 2, 512, 128), _randn(gen, cuda, 2, 7, 96)
-    assert fs.spatial_variant(2, 512, 128, 7, 96, 2, 512) == fs.VARIANT_MMA
-    with torch.no_grad(), pytest.raises(RuntimeError):
-        fs._launch(x128, ctx96, params128, 2, variant=fs.VARIANT_WGMMA)
     _, params1536 = _spatial_block(cuda, 320, 5, 1536)
-    ctx1536 = _randn(gen, cuda, 2, 7, 1536)
-    assert fs.spatial_variant(2, 1024, 320, 7, 1536, 5, 1280) == fs.VARIANT_MMA
-    with torch.no_grad(), pytest.raises(RuntimeError):
-        fs._launch(x, ctx1536, params1536, 5, variant=fs.VARIANT_WGMMA)
+    x, ctx1536 = _randn(gen, cuda, 2, 1024, 320), _randn(gen, cuda, 2, 7, 1536)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for args in ((x128, ctx96, params128, 2), (x, ctx1536, params1536, 5)):
+            with pytest.raises(ValueError, match="the kernel takes C = 320"):
+                fs.fused_spatial_transformer(*args)
+        assert ops.launch_counts()["fused_spatial"] == 0
+        monkeypatch.setenv(fs.ENV_FLAG, "1")
+        out = mod128(x128.transpose(1, 2).reshape(2, 128, 16, 32).contiguous(), ctx96)
+    assert ops.launch_counts()["fused_spatial"] == 0
+    assert ops.launch_counts()["flash_attention"] == 1 and torch.isfinite(out.float()).all()
 
 
 @pytest.mark.parametrize("kv_len", [145, 77])
@@ -925,46 +929,46 @@ def test_fused_spatial_wgmma_large_logits(cuda, kv_len):
 def test_fused_spatial_rejects_what_it_cannot_take(cuda):
     from videomv_tpu_torch.ops.fused_spatial import fused_spatial_transformer
 
-    _, params = _spatial_block(cuda, 128, 2, 96)
+    _, params = _spatial_block(cuda, 320, 5, 1024)
     gen = torch.Generator(device=cuda).manual_seed(1)
-    x, ctx = _randn(gen, cuda, 2, 128, 128), _randn(gen, cuda, 2, 7, 96)
-    fused_spatial_transformer(x, ctx, params, 2)  # fine
+    x, ctx = _randn(gen, cuda, 2, 128, 320), _randn(gen, cuda, 2, 7, 1024)
+    fused_spatial_transformer(x, ctx, params, 5)  # fine
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x.float(), ctx, params, 2)  # fp32 x
+        fused_spatial_transformer(x.float(), ctx, params, 5)  # fp32 x
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x[:, :100].contiguous(), ctx, params, 2)  # S % 64 != 0
+        fused_spatial_transformer(x[:, :100].contiguous(), ctx, params, 5)  # S % 64 != 0
     with pytest.raises(ValueError):
         fused_spatial_transformer(x, ctx, params, 4)  # C != heads·64
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x.transpose(0, 1).contiguous().transpose(0, 1), ctx, params, 2)
+        fused_spatial_transformer(x.transpose(0, 1).contiguous().transpose(0, 1), ctx, params, 5)
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x, ctx[:1], params, 2)  # rows disagree
+        fused_spatial_transformer(x, ctx[:1], params, 5)  # rows disagree
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x, ctx, dict(params, bin=params["bin"].bfloat16()), 2)
+        fused_spatial_transformer(x, ctx, dict(params, bin=params["bin"].bfloat16()), 5)
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x, ctx, dict(params, wk2=params["wk1"]), 2)  # [C, Cc] wanted
+        fused_spatial_transformer(x, ctx, dict(params, wk2=params["wk1"]), 5)  # [C, Cc] wanted
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x, ctx, {k: v for k, v in params.items() if k != "b2"}, 2)
+        fused_spatial_transformer(x, ctx, {k: v for k, v in params.items() if k != "b2"}, 5)
     with pytest.raises(ValueError):
-        fused_spatial_transformer(x, ctx.cpu(), params, 2)  # another device
+        fused_spatial_transformer(x, ctx.cpu(), params, 5)  # another device
 
 
 def test_fused_spatial_backward_is_the_twins(cuda):
     from videomv_tpu_torch.ops.fused_spatial import (
         fused_spatial_transformer, spatial_block_reference)
 
-    _, params = _spatial_block(cuda, 128, 2, 96)
+    _, params = _spatial_block(cuda, 320, 5, 1024)
     gen = torch.Generator(device=cuda).manual_seed(5)
-    x = _randn(gen, cuda, 2, 256, 128).requires_grad_()
-    ctx = _randn(gen, cuda, 2, 7, 96).requires_grad_()
+    x = _randn(gen, cuda, 2, 256, 320).requires_grad_()
+    ctx = _randn(gen, cuda, 2, 7, 1024).requires_grad_()
     pg = {k: v.clone().requires_grad_() for k, v in params.items()}
-    go = _randn(gen, cuda, 2, 256, 128)
+    go = _randn(gen, cuda, 2, 256, 320)
     ops.reset_launch_counts()
-    out = fused_spatial_transformer(x, ctx, pg, 2)
+    out = fused_spatial_transformer(x, ctx, pg, 5)
     assert ops.launch_counts()["fused_spatial"] == 1 and out.requires_grad
     got = torch.autograd.grad(out, [x, ctx, *pg.values()], go)
     assert ops.launch_counts()["fused_spatial"] == 1  # the backward launches nothing
-    want = torch.autograd.grad(spatial_block_reference(x, ctx, pg, 2), [x, ctx, *pg.values()], go)
+    want = torch.autograd.grad(spatial_block_reference(x, ctx, pg, 5), [x, ctx, *pg.values()], go)
     assert _rel_max(got, want) <= 1e-3
 
 
@@ -977,8 +981,7 @@ def test_spatial_transformer_dispatch_follows_the_flag(cuda, monkeypatch):
     gen = torch.Generator(device=cuda).manual_seed(6)
     x = _randn(gen, cuda, 4, 320, 32, 32)
     ctx = _randn(gen, cuda, 4, 145, 1024)
-    zero = {"flash_attention": 0, "geglu_ffn": 0, "splat_composite": 0, "splat_composite_bwd": 0,
-            "fused_spatial": 0}
+    zero = dict.fromkeys(ops.launch_counts(), 0)
     monkeypatch.delenv(ENV_FLAG, raising=False)
     with torch.no_grad():
         ops.reset_launch_counts()

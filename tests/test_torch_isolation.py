@@ -120,14 +120,18 @@ def test_every_cuda_source_is_built_and_bound():
                 or "// Replaces no TPU kernel: " in text), path
     # the same names, and as many arguments as the ctypes signature passes
     assert entry == {name: len(sig) for name, sig in _build._SIGNATURES.items()}
-    # kernels 1, 2 and 5 share their tile code through headers, not copies,
-    # and so do the splat composite's forward and backward their culling
-    for hdr, users in (("attention_tile.cuh", ("flash_attention.cu", "fused_spatial.cu")),
-                       ("ffn_tile.cuh", ("fused_ffn.cu", "fused_spatial.cu")),
+    # each header of tile code is included by exactly its users: kernel 1's
+    # mma.sync tile step, and the splat composite's culling, shared by its
+    # forward and backward through a header, not copies
+    for hdr, users in (("attention_tile.cuh", ("flash_attention.cu",)),
                        ("splat_cull.cuh", ("splat_composite.cu", "splat_composite_bwd.cu"))):
         assert os.path.exists(os.path.join(_build.CSRC_DIR, hdr))
-        for u in users:
-            assert f'#include "{hdr}"' in open(os.path.join(_build.CSRC_DIR, u)).read(), (hdr, u)
+        for path in srcs:
+            text = open(path).read()
+            assert (f'#include "{hdr}"' in text) == (os.path.basename(path) in users), (hdr, path)
+    assert sorted(os.path.basename(h) for h in glob.glob(os.path.join(_build.CSRC_DIR, "*.cuh"))) \
+        == ["attention_tile.cuh", "hopper_utils.cuh", "mma_utils.cuh", "splat_cull.cuh",
+            "wgmma_ops.cuh"]
     # the wgmma kernels of attention, the FFN and the fused block share their
     # Hopper helpers; the splat kernels and the attention backward (mma.sync)
     # use none

@@ -1,5 +1,6 @@
 """The host side of the two wgmma kernels (flash attention, GEGLU FFN): which
-hand-written kernel serves a shape, the tiling and the TMA tensor maps the
+hand-written kernel serves an attention shape and which widths the FFN's
+kernel takes, the tiling and the TMA tensor maps the
 wrappers describe, held against the constraints of the hardware and against
 the CUDA sources; and the kernels' plain twins against the JAX package
 (Pallas in interpret mode, or its plain reference where the Pallas kernel
@@ -88,19 +89,21 @@ def test_attention_plan_matches_the_source():
 
 @pytest.mark.parametrize("t,c,inner", SERVED_FFN)
 def test_served_ffn_shapes_take_the_wgmma_kernel(t, c, inner):
-    assert tff.ffn_variant(t, c, inner) == tff.VARIANT_WGMMA
     assert tff.ffn_eligible(t, c, inner, torch.bfloat16, True)
+    assert tff.ffn_plan(c)["w1_stages"] * 64 == c
 
 
-@pytest.mark.parametrize("c,variant", [(64, tff.VARIANT_MMA), (96, tff.VARIANT_MMA),
-                                       (320, tff.VARIANT_WGMMA), (512, tff.VARIANT_WGMMA),
-                                       (640, tff.VARIANT_WGMMA), (1024, tff.VARIANT_MMA)])
-def test_ffn_variant_by_width(c, variant):
-    for t in (1, 333, 49152):
-        assert tff.ffn_variant(t, c, 4 * c) == variant
+@pytest.mark.parametrize("c,kernel", [(64, False), (96, False), (320, True), (512, True),
+                                      (640, True), (1024, False)])
+def test_ffn_kernel_by_width(c, kernel):
+    """The gate admits exactly the widths the C entry point instantiates the
+    kernel for; every other width takes the plain twin."""
+    assert tff.ffn_eligible(49152, c, 4 * c, torch.bfloat16, True) == kernel
+    for t in (1, 333):   # under the JAX rule's 4096 tokens: plain at any width
+        assert not tff.ffn_eligible(t, c, 4 * c, torch.bfloat16, True)
     src = _source("fused_ffn.cu")
-    # the C entry point instantiates the wgmma kernel for exactly these widths
-    assert (f"launch_ffn_wgmma<{c}>" in src) == (variant == tff.VARIANT_WGMMA)
+    assert (f"launch_ffn_wgmma<{c}>" in src) == kernel
+    assert (c in tff.WGMMA_WIDTHS) == kernel
 
 
 @pytest.mark.parametrize("c", tff.WGMMA_WIDTHS)

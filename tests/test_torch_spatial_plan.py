@@ -1,5 +1,5 @@
-"""The host side of kernel 5's wgmma variant (csrc/fused_spatial.cu): which
-hand-written kernel serves a shape, the tiling and the TMA tensor maps the
+"""The host side of kernel 5 (csrc/fused_spatial.cu): which shapes its gate
+sends to the kernel and which to the module path, the tiling and the TMA tensor maps the
 wrapper describes, held against the limits of the hardware and against the
 CUDA source; the fp32 twin against the JAX package at the new kernel's tile
 edges (128-key K/V tiles, ragged contexts); and the fp32 copies of the norm
@@ -28,8 +28,9 @@ set_torch_threads()
 # tokens) at 48 and 24 rows, the T2V context (77 tokens)
 SERVED = [(48, 1024, 320, 145, 1024, 5, 1280), (24, 1024, 320, 145, 1024, 5, 1280),
           (48, 1024, 320, 77, 1024, 5, 1280), (24, 1024, 320, 77, 1024, 5, 1280)]
-# the shapes tests/test_torch_gpu_kernels.py drives through the mma.sync kernel
-GPU_TEST_SHAPES = [(2, 512, 128, 7, 96, 2, 512), (3, 64, 64, 64, 32, 1, 256),
+# other shapes: the CPU tests' size, one 64-token tile, the widest C the JAX
+# rule admits, a wider context, an odd head count
+OTHER_SHAPES = [(2, 512, 128, 7, 96, 2, 512), (3, 64, 64, 64, 32, 1, 256),
                    (1, 1024, 384, 145, 1024, 6, 1536), (2, 576, 320, 1, 1536, 5, 1280),
                    (2, 1024, 192, 129, 64, 3, 768)]
 
@@ -39,15 +40,26 @@ def _source():
         return f.read()
 
 
+def _gate(shape):
+    """The gate on a bf16 CUDA call of ``shape``, as the module asks it."""
+    r, s, c, kv_len, cc, heads, inner_ff = shape
+    return tfs.spatial_fused_eligible(s, c, heads * 64, heads, cc, torch.bfloat16, True)
+
+
 @pytest.mark.parametrize("shape", SERVED)
-def test_served_shapes_take_the_wgmma_kernel(shape):
-    assert tfs.spatial_variant(*shape) == tfs.VARIANT_WGMMA
+def test_served_shapes_take_the_wgmma_kernel(shape, monkeypatch):
+    monkeypatch.setenv(tfs.ENV_FLAG, "1")
+    assert _gate(shape)
+    monkeypatch.delenv(tfs.ENV_FLAG)
+    assert not _gate(shape)
 
 
-@pytest.mark.parametrize("shape", GPU_TEST_SHAPES)
-def test_other_shapes_keep_the_mma_kernel(shape):
-    assert tfs.spatial_variant(*shape) == tfs.VARIANT_MMA
-    assert set(tfs.VARIANT_NAMES) == {tfs.VARIANT_MMA, tfs.VARIANT_WGMMA}
+@pytest.mark.parametrize("shape", OTHER_SHAPES)
+def test_other_shapes_take_the_module_path(shape, monkeypatch):
+    """With the switch on, the gate refuses them: the module composes the
+    block from kernels 1, 2 and PyTorch ops."""
+    monkeypatch.setenv(tfs.ENV_FLAG, "1")
+    assert not _gate(shape)
 
 
 def test_spatial_plan_fits_the_sm():

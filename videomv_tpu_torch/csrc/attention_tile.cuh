@@ -1,14 +1,12 @@
-// One K/V tile of the online-softmax attention, per warp: the step shared by
-// the flash-attention kernel (flash_attention.cu) and the attentions inside
-// the fused spatial-transformer kernel (fused_spatial.cu).
+// One K/V tile of the online-softmax attention, per warp: the step of the
+// flash-attention kernel's mma.sync variant (flash_attention.cu).
 //
 // A warp owns 16 query rows (its Q as m16n8k16 A fragments in registers) and
 // walks K/V tiles of kAttnBlockN keys staged in shared memory with rows of LD
 // elements: S = Q K^T (fp32), running max and sum in fp32 with the exponent in
 // base 2, P rounded to bf16 before the PV product, O kept in fp32 registers.
-// The caller divides O by the row sum once after the last tile. With MASK the
-// keys at and beyond `n_valid` of this tile count as -inf (a ragged last
-// tile; the first tile must hold at least one valid key).
+// The caller divides O by the row sum once after the last tile; every key of
+// the tile is valid.
 #pragma once
 
 #include <math.h>
@@ -19,12 +17,11 @@ namespace vmv {
 
 constexpr int kAttnBlockN = 64;  // keys per K/V tile
 
-template <int D, int LD, bool MASK>
+template <int D, int LD>
 __device__ __forceinline__ void attn_tile_step(const uint32_t (&qf)[D / 16][4],
                                                const bf16* cK, const bf16* cV,
                                                float (&o_acc)[D / 8][4], float (&m_run)[2],
-                                               float (&l_run)[2], float scale_log2, int lane,
-                                               int n_valid) {
+                                               float (&l_run)[2], float scale_log2, int lane) {
   constexpr int kBlockN = kAttnBlockN;
   // S = Q K^T for this warp's 16 rows x 64 keys (fp32)
   float s[kBlockN / 8][4];
@@ -39,14 +36,6 @@ __device__ __forceinline__ void attn_tile_step(const uint32_t (&qf)[D / 16][4],
                           ((lane >> 3) & 1) * 8);
       mma_bf16_16816(s[2 * np], qf[kk], kb[0], kb[1]);
       mma_bf16_16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-    }
-  }
-  if (MASK) {
-    const int c0 = (lane & 3) * 2;
-#pragma unroll
-    for (int i = 0; i < kBlockN / 8; ++i) {
-      if (i * 8 + c0 >= n_valid) s[i][0] = s[i][2] = -INFINITY;
-      if (i * 8 + c0 + 1 >= n_valid) s[i][1] = s[i][3] = -INFINITY;
     }
   }
 

@@ -411,7 +411,7 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* cK = sK + buf * kBlockN * LD;
     const bf16* cV = sV + buf * kBlockN * LD;
 
-    attn_tile_step<D, LD, false>(qf, cK, cV, o_acc, m_run, l_run, scale_log2, lane, kBlockN);
+    attn_tile_step<D, LD>(qf, cK, cV, o_acc, m_run, l_run, scale_log2, lane);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 

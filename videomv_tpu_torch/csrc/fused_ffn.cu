@@ -26,8 +26,8 @@
 // call at C = 320 and at C = 640, 4.8 GB at C = 512, is 3.6-5.4 TB/s). At
 // C = 640 the 192 blocks of 64 rows are 1.45 waves of the 132 SMs.
 //
-// The served widths (C = 320, 512, 640; variant 1) run the kernel designed for
-// this card, geglu_ffn_wgmma_kernel:
+// The kernel, geglu_ffn_wgmma_kernel, takes the UNets' widths C = 320, 512 and
+// 640 (other widths take the plain twin, ops/fused_ffn.py::ffn_eligible):
 //   * a block owns 64 token rows. Two consumer warpgroups (2 x 128 threads)
 //     share those rows and split the columns: each computes half of every
 //     chunk's lin / gate columns and accumulates half of the C output columns
@@ -60,21 +60,12 @@
 //     product; one named barrier a chunk.
 //   * rows beyond T come from TMA as zeros and are never stored; T < 64 works.
 // Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py: 0.36 ms at
-// [49152, 320] (34 % of the bound; the first port's kernel 1.18 ms), 0.53 ms at
-// [12288, 640] (23 %; 1.54 ms), 1.12 ms at [49152, 512] (28 %; 2.65 ms); the
-// table in PERF.md has every shape.
-//
-// Other widths the wrapper accepts (C % 16 == 0, C <= 1024; variant 0) keep
-// the first port's kernel, geglu_ffn_kernel: mma.sync m16n8k16 with the
-// accumulator in shared memory (the chunk loop is geglu_ffn_tile of
-// ffn_tile.cuh, shared with the fused spatial-transformer kernel). The
-// variant is chosen by the caller from the shape and checked here; neither is
-// a fallback of the other.
+// [49152, 320] (34 % of the bound), 0.53 ms at [12288, 640] (23 %), 1.12 ms at
+// [49152, 512] (28 %); the table in PERF.md has every shape.
 // Requirements (checked by the Python wrapper): bf16 x/W1/W2, fp32 biases,
 // contiguous, 16-byte aligned; W1 [2I, C] and W2 [C, I] in nn.Linear layout;
-// I % 64 == 0.
+// C in {320, 512, 640}, I % 64 == 0.
 
-#include "ffn_tile.cuh"
 #include "hopper_utils.cuh"
 #include "mma_utils.cuh"
 #include "wgmma_ops.cuh"
@@ -401,100 +392,19 @@ cudaError_t launch_ffn_wgmma(const void* x, const void* w1, const void* b1, cons
   return cudaGetLastError();
 }
 
-// ------------------------------------- the first port's kernel (mma.sync)
-constexpr int kThreads = kFfnThreads;
-constexpr int kChunk = kFfnChunk;
-constexpr int kLdG = kFfnLdG;
-
-__host__ __device__ constexpr int ffn_ld(int c) { return c + 8; }
-
-__host__ size_t ffn_smem_bytes(int bm, int c) {
-  return size_t(bm) * ffn_ld(c) * (sizeof(float) + sizeof(bf16)) +
-         size_t(bm) * kLdG * sizeof(bf16);
-}
-
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                 const float* __restrict__ b1, const bf16* __restrict__ w2,
-                 const float* __restrict__ b2, bf16* __restrict__ out, int T, int C, int I) {
-  constexpr int MT = BM / 16;  // m16 tiles per block
-  const int ld = ffn_ld(C);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sAcc = reinterpret_cast<float*>(smem_raw);         // [BM][ld] fp32
-  bf16* sX = reinterpret_cast<bf16*>(sAcc + BM * ld);        // [BM][ld]
-  bf16* sG = sX + BM * ld;                                   // [BM][kLdG]
-
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * BM;
-
-  // x tile (zero rows past T) and a zeroed accumulator
-  const int cpr = C / 8;
-  for (int c = tid; c < BM * cpr; c += kThreads) {
-    const int r = c / cpr;
-    const int col = (c - r * cpr) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T) val = *reinterpret_cast<const uint4*>(x + int64_t(t0 + r) * C + col);
-    *reinterpret_cast<uint4*>(sX + r * ld + col) = val;
-  }
-  for (int i = tid; i < BM * ld; i += kThreads) sAcc[i] = 0.f;
-  __syncthreads();
-
-  geglu_ffn_tile<MT>(sX, sAcc, sG, ld, w1, b1, w2, C, I);
-
-  // ---- out = acc + b2, rounded to bf16
-  const int half = C / 2;
-  for (int c = tid; c < BM * half; c += kThreads) {
-    const int r = c / half;
-    const int col = (c - r * half) * 2;
-    if (t0 + r < T) {
-      const float2 a = *reinterpret_cast<const float2*>(sAcc + r * ld + col);
-      *reinterpret_cast<uint32_t*>(out + int64_t(t0 + r) * C + col) =
-          pack_bf16x2(a.x + b2[col], a.y + b2[col + 1]);
-    }
-  }
-}
-
-template <int BM>
-cudaError_t launch_ffn(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* out, int T, int C, int I, cudaStream_t stream) {
-  const size_t smem = ffn_smem_bytes(BM, C);
-  cudaError_t err = cudaFuncSetAttribute(geglu_ffn_kernel<BM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BM - 1) / BM);
-  geglu_ffn_kernel<BM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<bf16*>(out), T, C, I);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace vmv
 
 // x [T, C], w1 [2I, C], w2 [C, I], out [T, C]: bf16; b1 [2I], b2 [C]: fp32.
-// All contiguous. `variant` names the kernel (ops/fused_ffn.py::ffn_variant
-// chooses it from the shape): 1 = wgmma (C in {320, 512, 640}), 0 = mma.sync.
-// Returns a cudaError_t value; a variant that does not take the shape is
-// cudaErrorInvalidValue.
+// All contiguous. C in {320, 512, 640}, I % 64 == 0; any other shape is
+// cudaErrorInvalidValue. Returns a cudaError_t value.
 extern "C" int vmv_geglu_ffn_fwd(const void* x, const void* w1, const void* b1,
                                  const void* w2, const void* b2, void* out, int T, int C,
-                                 int I, int variant, void* stream) {
+                                 int I, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || C <= 0 || C % 16 != 0 || C > 1024 || I <= 0 || I % vmv::kChunk != 0) {
-    return int(cudaErrorInvalidValue);
-  }
-  if (variant == 1) {
-    if (C == 320) return int(vmv::launch_ffn_wgmma<320>(x, w1, b1, w2, b2, out, T, I, st));
-    if (C == 512) return int(vmv::launch_ffn_wgmma<512>(x, w1, b1, w2, b2, out, T, I, st));
-    if (C == 640) return int(vmv::launch_ffn_wgmma<640>(x, w1, b1, w2, b2, out, T, I, st));
-    return int(cudaErrorInvalidValue);
-  }
-  if (variant != 0) return int(cudaErrorInvalidValue);
-  if (C <= 512) {  // token tile: 64 rows, else 32 (the accumulator must fit)
-    return int(vmv::launch_ffn<64>(x, w1, b1, w2, b2, out, T, C, I, st));
-  }
-  return int(vmv::launch_ffn<32>(x, w1, b1, w2, b2, out, T, C, I, st));
+  if (T <= 0 || I <= 0 || I % vmv::kWgChunk != 0) return int(cudaErrorInvalidValue);
+  if (C == 320) return int(vmv::launch_ffn_wgmma<320>(x, w1, b1, w2, b2, out, T, I, st));
+  if (C == 512) return int(vmv::launch_ffn_wgmma<512>(x, w1, b1, w2, b2, out, T, I, st));
+  if (C == 640) return int(vmv::launch_ffn_wgmma<640>(x, w1, b1, w2, b2, out, T, I, st));
+  return int(cudaErrorInvalidValue);
 }

@@ -246,8 +246,9 @@ class SpatialTransformer(nn.Module):
     In eval mode, with a context, depth 1 and d_head 64, the whole block runs
     as one fused CUDA kernel where ``spatial_fused_eligible`` holds (opt-in
     through ``VIDEOMV_ENABLE_FUSED_SPATIAL``; bf16 on a CUDA device, the 32²
-    / C = 320 stage). The kernel's layout is ``[R, S, C]``: the NCHW input is
-    permuted to tokens-last around the call."""
+    / C = 320 stage with a 1024-wide context). The kernel's layout is
+    ``[R, S, C]``: the NCHW input is permuted to tokens-last around the
+    call."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, dropout: float = 0.0):
@@ -266,7 +267,7 @@ class SpatialTransformer(nn.Module):
         if (not self.training and context is not None and self.depth == 1
                 and self.d_head == 64 and self.transformer_blocks[0].attn1.tp_group is None
                 and spatial_fused_eligible(hh * ww, c, self.n_heads * self.d_head, self.n_heads,
-                                           x.dtype, x.is_cuda)):
+                                           context.shape[-1], x.dtype, x.is_cuda)):
             out = fused_spatial_transformer(
                 x.permute(0, 2, 3, 1).contiguous().view(bf, hh * ww, c), context.contiguous(),
                 kernel_params(self), self.n_heads)

@@ -30,12 +30,11 @@ each forward a graph served.
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Dict, Optional
 
 import torch
 
-from ..ops.fused_spatial import ENV_FLAG as FUSED_SPATIAL_FLAG
+from ..ops import fused_spatial
 from ..parallel.infer import current_frame_shard
 from ..utils import profiling
 
@@ -98,7 +97,7 @@ def _signature(args: Dict[str, Optional[torch.Tensor]]) -> Optional[tuple]:
             key.append((name, tuple(v.shape), v.dtype, v.device))
         else:
             return None
-    key.append((bool(os.environ.get(FUSED_SPATIAL_FLAG)), torch.backends.cuda.matmul.allow_tf32,
+    key.append((fused_spatial.enabled(), torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32))
     return tuple(key)
 

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "vmv_flash_attn_fwd": [_c_void_p] * 5 + [_c_int] * 4 + [_c_float, _c_int, _c_void_p],
     # q, k, v, o, lse, dout, delta (scratch), dq, dk, dv, then B, S, H, D, the scale
     "vmv_flash_attn_bwd": [_c_void_p] * 10 + [_c_int] * 4 + [_c_float, _c_void_p],
-    # x, w1, b1, w2, b2, out, then T, C, I, variant
-    "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
+    # x, w1, b1, w2, b2, out, then T, C, I
+    "vmv_geglu_ffn_fwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
     # payload, tile_start, tile_count, order (or null), scratch, out, then R,
     # rows, capacity, n_tiles_side, variant
     "vmv_splat_composite_fwd": [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p],
@@ -52,9 +52,8 @@ _SIGNATURES = {
     "vmv_splat_composite_bwd": [_c_void_p] * 8 + [_c_int] * 4 + [_c_void_p],
     # the culled backward kernel's dynamic shared memory, in bytes
     "vmv_splat_composite_bwd_smem": [],
-    # a host array of the device pointers, then R, S, C, L, Cc, heads, inner,
-    # variant
-    "vmv_fused_spatial_fwd": [_c_void_p] + [_c_int] * 8 + [_c_void_p],
+    # a host array of the device pointers, then R, S, C, L, Cc, heads, inner
+    "vmv_fused_spatial_fwd": [_c_void_p] + [_c_int] * 7 + [_c_void_p],
     # x, weight, bias, out, the sample and run strides, then N, C, G, R, P,
     # eps, silu, and the plan: cluster, slice_vecs, res_vecs, threads
     "vmv_group_norm_fwd": [_c_void_p] * 4 + [_c_longlong] * 2 + [_c_int] * 5 + [_c_float]

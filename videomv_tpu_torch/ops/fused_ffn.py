@@ -5,12 +5,11 @@ Port of ``videomv_tpu/ops/fused_ffn.py``. ``geglu_ffn(x, w1, b1, w2, b2)``
 computes ``(x·W1a + b1a) · gelu_erf(x·W1b + b1b) · W2 + b2`` for ``x [T, C]``
 with the weights in ``nn.Linear`` layout (``w1 [2I, C]``, ``w2 [C, I]``,
 the transposes of the JAX package's ``[C, 2I]`` / ``[I, C]``). On a CUDA
-tensor it launches the hand-written kernel (bf16 x and weights, fp32
+tensor it launches the hand-written wgmma kernel (bf16 x and weights, fp32
 biases) or raises; on a CPU tensor it runs ``geglu_ffn_reference``. The
-fp32 sampling mode never reaches the kernel (``ffn_eligible`` is bf16-only).
-Two kernels sit behind the one entry point, chosen by shape
-(``ffn_variant``): the wgmma kernel for the UNet's widths, the mma.sync
-kernel for the rest.
+kernel takes the UNets' widths C in ``WGMMA_WIDTHS`` (320, 512, 640);
+``ffn_eligible`` sends every other width, and the fp32 sampling mode, to the
+plain path.
 
 The counter ``launch.geglu_ffn`` of ``utils.profiling`` counts kernel
 launches (and nothing else), by the ``(T, C, I)`` of each launch too.
@@ -30,27 +29,13 @@ import torch.nn.functional as F
 from ..utils import profiling
 from . import _build
 
-__all__ = ["VARIANT_MMA", "VARIANT_NAMES", "VARIANT_WGMMA",
-           "WGMMA_WIDTHS", "ffn_eligible", "ffn_plan", "ffn_tensor_maps", "ffn_variant",
-           "geglu_ffn", "geglu_ffn_reference"]
+__all__ = ["WGMMA_WIDTHS", "ffn_eligible", "ffn_plan", "ffn_tensor_maps", "geglu_ffn",
+           "geglu_ffn_reference"]
 
 
-# The two hand-written kernels behind ``vmv_geglu_ffn_fwd`` (csrc/fused_ffn.cu):
-# the wgmma kernel (TMA-staged weight tiles, register accumulators) is
-# instantiated for the UNet's widths, the mma.sync kernel takes every other
-# width the wrapper accepts. The choice is by shape, made here and checked
-# again by the C entry point.
-VARIANT_MMA, VARIANT_WGMMA = 0, 1
-VARIANT_NAMES = {VARIANT_MMA: "mma.sync", VARIANT_WGMMA: "wgmma"}
+# the widths ``vmv_geglu_ffn_fwd`` (csrc/fused_ffn.cu) instantiates its kernel for
 WGMMA_WIDTHS = (320, 512, 640)
-
-
 MAX_DYNAMIC_SMEM = 232448  # bytes one block may ask for on sm_90
-
-
-def ffn_variant(t: int, c: int, inner: int) -> int:
-    """Which kernel serves ``x [t, c]`` with ``inner`` hidden columns."""
-    return VARIANT_WGMMA if c in WGMMA_WIDTHS else VARIANT_MMA
 
 
 def ffn_plan(c: int) -> dict:
@@ -103,11 +88,11 @@ def geglu_ffn_reference(x, w1, b1, w2, b2):
 
 def ffn_eligible(t: int, c: int, inner: int, dtype: torch.dtype, is_cuda: bool) -> bool:
     """The kernel gate of the JAX package (bf16, C <= 640, T >= 4096,
-    inner % 256 == 0) with its TPU-backend test replaced by ``is_cuda``.
-    The C = 1280 levels are not eligible."""
+    inner % 256 == 0) with its TPU-backend test replaced by ``is_cuda``, and
+    C one of the kernel's widths. The C = 1280 levels are not eligible."""
     if not is_cuda or dtype != torch.bfloat16:
         return False
-    return c <= 640 and t >= 4 * 1024 and inner % 256 == 0
+    return c <= 640 and t >= 4 * 1024 and inner % 256 == 0 and c in WGMMA_WIDTHS
 
 
 def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
@@ -131,18 +116,16 @@ def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
             f"geglu_ffn: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)} "
             f"do not fit w1 [2I, C], w2 [C, I]")
-    if c % 16 != 0 or c > 1024 or inner % 64 != 0:
+    if c not in WGMMA_WIDTHS or inner % 64 != 0:
         raise ValueError(
-            f"geglu_ffn: the kernel takes C % 16 == 0, C <= 1024, I % 64 == 0; "
+            f"geglu_ffn: the kernel takes C in {WGMMA_WIDTHS} and I % 64 == 0; "
             f"got C={c}, I={inner}")
     for name, t in (("x", x), ("w1", w1), ("w2", w2)):
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"geglu_ffn: {name} must be 16-byte aligned")
 
 
-def _launch(x, w1, b1, w2, b2, variant=None):
-    """One kernel launch; ``variant`` (for measurements that time both
-    kernels on one input) overrides the choice by shape and must take it."""
+def _launch(x, w1, b1, w2, b2):
     _check_cuda_inputs(x, w1, b1, w2, b2)
     t, c = x.shape
     inner = w2.shape[1]
@@ -150,8 +133,7 @@ def _launch(x, w1, b1, w2, b2, variant=None):
     lib = _build.load_library()
     err = lib.vmv_geglu_ffn_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), t, c, inner, ffn_variant(t, c, inner) if variant is None else variant,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), t, c, inner, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "vmv_geglu_ffn_fwd")
     profiling.count("launch.geglu_ffn", shape=(t, c, inner))
     return out

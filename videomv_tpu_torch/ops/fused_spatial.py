@@ -13,16 +13,15 @@ fp32 norm scales and biases) or raises; on a CPU tensor it runs
 ``spatial_block_reference``, the fp32 twin.
 
 The kernel is opt-in, as in the JAX package: ``spatial_fused_eligible`` is
-false unless ``VIDEOMV_ENABLE_FUSED_SPATIAL`` is set, and then holds for the
-UNet's 32² / C = 320 stage only (``C == heads·64 <= 384``, ``S % 512 == 0``,
-bf16 on a CUDA device). The JAX package's VMEM-sizing switches (rows per grid
-cell, bf16 residuals) have no counterpart: the kernel keeps fp32 residuals.
-
-Two kernels sit behind the one entry point, chosen by shape
-(``spatial_variant``): the wgmma kernel designed for Hopper at the served
-width (C = 320, 5 heads, context width 1024), the first port's mma.sync kernel for every other shape the wrapper
-takes. ``spatial_plan`` and ``spatial_tensor_maps`` describe the wgmma
-kernel's tiling and TMA maps as ``csrc/fused_spatial.cu`` lays them out.
+false unless ``VIDEOMV_ENABLE_FUSED_SPATIAL`` is set (``enabled()``, the one
+reader of the switch), and then holds for the UNets' 32² stage only: the JAX
+package's rule (``C == heads·64 <= 384``, ``S % 512 == 0``) where the wgmma
+kernel takes the shape (C = 320, 5 heads, context width 1024), bf16 on a
+CUDA device. Every other shape takes the module path. The JAX package's
+VMEM-sizing switches (rows per grid cell, bf16 residuals) have no
+counterpart: the kernel keeps fp32 residuals. ``spatial_plan`` and
+``spatial_tensor_maps`` describe the kernel's tiling and TMA maps as
+``csrc/fused_spatial.cu`` lays them out.
 
 The counter ``launch.fused_spatial`` of ``utils.profiling`` counts wrapper
 calls that launched the kernel (one call runs its four ``__global__`` phases
@@ -47,9 +46,7 @@ from . import _build
 
 __all__ = [
     "PARAM_NAMES",
-    "VARIANT_MMA",
-    "VARIANT_NAMES",
-    "VARIANT_WGMMA",
+    "enabled",
     "fused_spatial_transformer",
     "kernel_params",
     "spatial_block_reference",
@@ -57,7 +54,6 @@ __all__ = [
     "spatial_params",
     "spatial_plan",
     "spatial_tensor_maps",
-    "spatial_variant",
 ]
 
 D_HEAD = 64
@@ -77,18 +73,9 @@ PARAM_NAMES = (
 _MATRICES = frozenset(n for n in PARAM_NAMES if n.startswith("w"))
 _VECTORS = tuple(n for n in PARAM_NAMES if n not in _MATRICES)
 
-VARIANT_MMA, VARIANT_WGMMA = 0, 1
-VARIANT_NAMES = {VARIANT_MMA: "mma.sync", VARIANT_WGMMA: "wgmma"}
+# the width and context width csrc/fused_spatial.cu is built for
 WGMMA_C, WGMMA_CC = 320, 1024
 MAX_DYNAMIC_SMEM = 232448  # bytes one block may ask for on sm_90
-
-
-def spatial_variant(r: int, s: int, c: int, kv_len: int, cc: int, n_heads: int,
-                    inner_ff: int) -> int:
-    """Which kernel serves x [r, s, c] over a context [r, kv_len, cc]."""
-    if c == WGMMA_C and n_heads == c // D_HEAD and cc == WGMMA_CC:
-        return VARIANT_WGMMA
-    return VARIANT_MMA
 
 
 def spatial_plan(c: int = WGMMA_C, cc: int = WGMMA_CC) -> dict:
@@ -223,17 +210,23 @@ def spatial_block_reference(x: torch.Tensor, ctx: torch.Tensor, params: Dict[str
     return (xf + y).to(x.dtype)
 
 
-def spatial_fused_eligible(s: int, c: int, inner: int, n_heads: int, dtype: torch.dtype,
-                           is_cuda: bool) -> bool:
+def enabled() -> bool:
+    """Whether ``VIDEOMV_ENABLE_FUSED_SPATIAL`` is set."""
+    return bool(os.environ.get(ENV_FLAG))
+
+
+def spatial_fused_eligible(s: int, c: int, inner: int, n_heads: int, cc: int,
+                           dtype: torch.dtype, is_cuda: bool) -> bool:
     """The kernel gate of the JAX package (opt-in through
     ``VIDEOMV_ENABLE_FUSED_SPATIAL``; ``inner == C == heads·64 <= 384``,
     ``C % 32 == 0``, ``S % 512 == 0``) with its TPU-backend test replaced by
-    ``is_cuda`` and bf16."""
-    if not os.environ.get(ENV_FLAG):
+    ``is_cuda`` and bf16, and held to the shape the kernel takes: C = 320 and
+    a context ``cc`` = 1024 wide."""
+    if not enabled() or not is_cuda or dtype != torch.bfloat16:
         return False
-    if not is_cuda or dtype != torch.bfloat16:
-        return False
-    return inner == c and c == n_heads * D_HEAD and c <= 384 and c % 32 == 0 and s % 512 == 0
+    jax_rule = (inner == c and c == n_heads * D_HEAD and c <= 384 and c % 32 == 0
+                and s % 512 == 0)
+    return jax_rule and c == WGMMA_C and cc == WGMMA_CC
 
 
 def _check_cuda_inputs(x, ctx, params, n_heads) -> None:
@@ -255,11 +248,11 @@ def _check_cuda_inputs(x, ctx, params, n_heads) -> None:
                          f"{tuple(x.shape)} and {tuple(ctx.shape)}")
     r, s, c = x.shape
     cc = ctx.shape[2]
-    if c != n_heads * D_HEAD or c > 384 or s % 64 != 0 or ctx.shape[1] < 1:
-        raise ValueError(f"{what}: the kernel takes C == heads·64 <= 384 and S % 64 == 0; got "
-                         f"C={c}, heads={n_heads}, S={s}")
-    if cc % 16 != 0 or cc > 1536:
-        raise ValueError(f"{what}: the kernel takes Cc % 16 == 0, Cc <= 1536; got Cc={cc}")
+    if (c != WGMMA_C or n_heads != WGMMA_C // D_HEAD or cc != WGMMA_CC or s % 64 != 0
+            or ctx.shape[1] < 1):
+        raise ValueError(f"{what}: the kernel takes C = {WGMMA_C} with {WGMMA_C // D_HEAD} "
+                         f"heads, Cc = {WGMMA_CC} and S % 64 == 0; got C={c}, heads={n_heads}, "
+                         f"Cc={cc}, S={s}")
     iff = params["w2"].shape[1] if params["w2"].dim() == 2 else -1
     if iff < 64 or iff % 64 != 0:
         raise ValueError(f"{what}: the feed-forward's inner width must be a multiple of 64, "
@@ -286,16 +279,12 @@ def _check_names(params) -> None:
             f"unexpected {sorted(set(params) - set(PARAM_NAMES))}")
 
 
-def _launch(x, ctx, params, n_heads, variant=None):
-    """One launch; ``variant`` (for measurements that time both kernels on one
-    input) overrides the choice by shape and must take it."""
+def _launch(x, ctx, params, n_heads):
     _check_names(params)
     _check_cuda_inputs(x, ctx, params, n_heads)
     r, s, c = x.shape
     kv_len, cc = ctx.shape[1], ctx.shape[2]
     iff = params["w2"].shape[1]
-    if variant is None:
-        variant = spatial_variant(r, s, c, kv_len, cc, n_heads, iff)
     dev = x.device
     out = torch.empty_like(x)
     # scratch of the phase split: GroupNorm moments, self-attention K/V of
@@ -307,7 +296,7 @@ def _launch(x, ctx, params, n_heads, variant=None):
     tensors = [x, ctx, out, stats, k1, v1, k2, v2] + [params[n] for n in PARAM_NAMES]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     lib = _build.load_library()
-    err = lib.vmv_fused_spatial_fwd(ptrs, r, s, c, kv_len, cc, n_heads, iff, variant,
+    err = lib.vmv_fused_spatial_fwd(ptrs, r, s, c, kv_len, cc, n_heads, iff,
                                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vmv_fused_spatial_fwd")
     profiling.count("launch.fused_spatial", shape=(r, s, c, kv_len))
